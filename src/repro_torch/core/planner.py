@@ -1,0 +1,484 @@
+"""Planner/executor split for Ocean SpGEMM (plan caching, paper Fig. 4).
+
+PyTorch port of ``repro.core.planner`` (single device). Analysis, size
+prediction and binning depend only on the sparsity patterns, so
+:func:`build_plan` freezes them into an :class:`ExecutionPlan` — bin
+ladder, per-bin ELL blocks on the device, ESC structure — that
+:func:`execute_plan` runs against any values of the same patterns, and
+:class:`PlanCache` keys plans by a hash of both patterns plus every planning
+knob. The binning ladders are the reference's, so plans match it bin for
+bin.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from ..obs import accuracy as obs_accuracy
+from ..obs import trace
+from . import esc as esc_mod
+from . import tuning as tuning_mod
+from .analysis import (AnalysisResult, OceanConfig, analyze,
+                       sharded_merge_estimate, sketches_for)
+from .binning import BinPlan, plan_bins
+from .formats import CSR, csr_from_arrays, flat_gather_index, host
+
+
+@dataclasses.dataclass
+class OceanReport:
+    workflow: str
+    er: float
+    sampled_cr: Optional[float]
+    nproducts_avg: float
+    total_products: int
+    m_regs: int
+    stage_seconds: Dict[str, float]
+    bins: Dict[str, int]
+    overflow_rows: int
+    nnz_out: int
+    plan_cache_hit: bool = False
+    feed_forward: bool = False
+    n_shards: int = 1
+    shard_imbalance: float = 1.0
+    executor: str = "serial"
+    # host-merge work done before the final slab was collected
+    overlap_seconds: float = 0.0
+    analysis_shards: int = 1
+    analysis_shard_seconds: Optional[List[float]] = None
+    raw_row_nnz: Optional[np.ndarray] = None
+    # host prework the planner ran while analysis launches were in flight
+    wave2_overlap_seconds: float = 0.0
+    wave2_overlapped: bool = False
+    # estimate-vs-exact telemetry measured after the numeric pass
+    estimation_accuracy: Optional[object] = None
+    # workflow-decision audit record captured at plan-build time
+    decision: Optional[Dict] = None
+
+    @property
+    def total_seconds(self) -> float:
+        return sum(self.stage_seconds.values())
+
+    @property
+    def setup_seconds(self) -> float:
+        """Host-side planning time: analysis + prediction + binning, plus
+        the plan-cache key hash/lookup when a cache was consulted."""
+        return sum(self.stage_seconds.get(k, 0.0)
+                   for k in ("plan_lookup", "analysis", "prediction",
+                             "binning", "partition"))
+
+    @property
+    def merge_overlap_frac(self) -> float:
+        """Overlapped merge work as a fraction of all merge work, in
+        [0, 1]."""
+        merge_s = self.stage_seconds.get("merge", 0.0)
+        if merge_s <= 0.0 or self.overlap_seconds <= 0.0:
+            return 0.0
+        return min(1.0, self.overlap_seconds / merge_s)
+
+    def audit(self) -> List[str]:
+        """Timing-field consistency audit; empty when consistent."""
+        bad: List[str] = []
+        for k, v in self.stage_seconds.items():
+            if v < 0.0:
+                bad.append(f"stage_seconds[{k!r}] negative: {v}")
+        if self.overlap_seconds < 0.0:
+            bad.append(f"overlap_seconds negative: {self.overlap_seconds}")
+        if self.wave2_overlap_seconds < 0.0:
+            bad.append("wave2_overlap_seconds negative: "
+                       f"{self.wave2_overlap_seconds}")
+        if not 0.0 <= self.merge_overlap_frac <= 1.0:
+            bad.append(f"merge_overlap_frac out of [0, 1]: "
+                       f"{self.merge_overlap_frac}")
+        merge_s = self.stage_seconds.get("merge")
+        if merge_s is not None and self.overlap_seconds > merge_s * (
+                1.0 + 1e-9):
+            bad.append(f"overlap_seconds {self.overlap_seconds} exceeds "
+                       f"parent merge time {merge_s}")
+        for s in self.analysis_shard_seconds or ():
+            if s < 0.0:
+                bad.append(f"analysis_shard_seconds entry negative: {s}")
+        if self.setup_seconds > self.total_seconds * (1.0 + 1e-9):
+            bad.append(f"setup_seconds {self.setup_seconds} exceeds "
+                       f"total_seconds {self.total_seconds}")
+        return bad
+
+
+def gather_rows(a: CSR, rows: np.ndarray) -> CSR:
+    """Sub-CSR of the selected rows (order preserved), on A's device."""
+    new_ptr, src = flat_gather_index(host(a.indptr), rows)
+    src_t = torch.from_numpy(src).to(a.device)
+    return csr_from_arrays(new_ptr, a.indices[src_t], a.values[src_t],
+                           (len(rows), a.n), device=a.device)
+
+
+# ---------------------------------------------------------------------------
+# Plan containers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DenseBinExec:
+    """One dense-accumulator bin with its structure-only kernel inputs
+    (tensors on the plan's device)."""
+    window: int
+    col_tiles: int
+    cap: int
+    rows: np.ndarray
+    ell_width: int
+    is_longrow: bool
+    pos: torch.Tensor          # (R, ell) int64 gather into A's nnz arrays
+    valid: torch.Tensor        # (R, ell) bool
+    a_rows: torch.Tensor       # (R, ell) int32 B-row ids
+    a_starts: torch.Tensor     # (R, ell) int32
+    a_lens: torch.Tensor       # (R, ell) int32
+    row_lo: torch.Tensor       # (R, 1) int32
+
+
+@dataclasses.dataclass
+class HashBinExec:
+    """One hash-accumulator bin with its structure-only kernel inputs.
+    ``f_chunk``/``tile`` are the tuned reference knobs, carried and
+    ignored by the CUDA kernel."""
+    table: int
+    spill: int
+    rows: np.ndarray
+    ell_width: int
+    pos: torch.Tensor
+    valid: torch.Tensor
+    a_rows: torch.Tensor
+    a_starts: torch.Tensor
+    a_lens: torch.Tensor
+    f_chunk: int = 128
+    tile: int = 8
+
+
+@dataclasses.dataclass
+class EscExec:
+    """The ESC bin: sub-CSR structure (on the plan's device) + capacity."""
+    rows: np.ndarray
+    sub_indptr: torch.Tensor   # (rows+1,) int32
+    sub_indices: torch.Tensor  # gathered column ids
+    src: torch.Tensor          # int64 gather into A's values
+    out_cap: int               # the bin's exact product count
+
+
+@dataclasses.dataclass
+class ExecutionPlan:
+    """Everything value-independent about one (A-pattern, B-pattern) pair."""
+    key: Optional[str]
+    shape_a: Tuple[int, int]
+    shape_b: Tuple[int, int]
+    workflow: str
+    assisted: bool
+    hybrid: bool
+    cfg: OceanConfig
+    products: np.ndarray       # (m,) int64 per-row intermediate products
+    out_lo: np.ndarray
+    dense: List[DenseBinExec]
+    esc: Optional[EscExec]
+    empty_rows: np.ndarray
+    bins_describe: Dict[str, int]
+    er: float
+    sampled_cr: Optional[float]
+    nproducts_avg: float
+    total_products: int
+    m_regs: int
+    b_sketches: Optional[torch.Tensor]
+    hash: List[HashBinExec] = dataclasses.field(default_factory=list)
+    build_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    feed_forward: bool = False
+    wave2_overlap_seconds: float = 0.0
+    wave2_overlapped: bool = False
+    # the per-row size prediction binning consumed (float64)
+    pred_row_nnz: Optional[np.ndarray] = None
+    decision: Optional[Dict] = None
+
+
+# ---------------------------------------------------------------------------
+# Planner
+# ---------------------------------------------------------------------------
+
+def structure_key(a: CSR, b: CSR, cfg: OceanConfig,
+                  force_workflow: Optional[str], assisted: bool,
+                  hybrid: bool,
+                  known_sizes: Optional[np.ndarray] = None) -> str:
+    """Cache key: hash of both sparsity patterns (int32 bytes) + every
+    planning knob + the device. Values are excluded: plans are
+    structure-only."""
+    h = hashlib.blake2b(digest_size=16)
+    for m in (a, b):
+        h.update(np.ascontiguousarray(host(m.indptr)).tobytes())
+        h.update(np.ascontiguousarray(host(m.indices[: m.nnz])).tobytes())
+        h.update(repr(m.shape).encode())
+    h.update(repr((cfg, force_workflow, assisted, hybrid,
+                   str(a.device))).encode())
+    if known_sizes is not None:
+        h.update(b"|known|")
+        h.update(np.ascontiguousarray(
+            np.asarray(known_sizes, np.int64)).tobytes())
+    return h.hexdigest()
+
+
+def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
+               force_workflow: Optional[str] = None, assisted: bool = True,
+               hybrid: bool = True, analysis: Optional[AnalysisResult] = None,
+               sketch_cache: Optional[Dict] = None,
+               key: Optional[str] = None,
+               known_sizes: Optional[np.ndarray] = None) -> ExecutionPlan:
+    """Run analysis -> size prediction -> binning and freeze the result."""
+    if a.device != b.device:
+        raise ValueError(f"A on {a.device}, B on {b.device}")
+    dev = a.device
+    on_cpu = dev.type == "cpu"
+    stage: Dict[str, float] = {}
+    a_ptr_host = host(a.indptr).astype(np.int64)
+    a_row_nnz = a_ptr_host[1:] - a_ptr_host[:-1]
+
+    # Host prework run while the analysis launches are in flight: the ESC
+    # bin's structure on the upper-bound path and, on the CPU, the whole
+    # symbolic prediction when Table 1 cannot pick estimation.
+    prework: Dict[str, object] = {}
+
+    def _wave2_prework(prod_host: np.ndarray) -> None:
+        if known_sizes is not None:
+            return
+        prods = np.asarray(prod_host, np.int64)
+        total = int(prods.sum())
+        avg = total / max(a.m, 1)
+        if force_workflow in (None, "upper_bound") and hybrid and (
+                force_workflow == "upper_bound"
+                or avg < cfg.upper_bound_avg_products):
+            from .binning import ESC_THRESHOLD
+            esc_rows = np.nonzero((prods > 0) & (prods < ESC_THRESHOLD))[0]
+            sub_ptr, src = flat_gather_index(a_ptr_host, esc_rows)
+            prework.update(esc_rows=esc_rows, sub_ptr=sub_ptr, src=src,
+                           p_cap=int(prods[esc_rows].sum()))
+            return
+        er = total / max(a.nnz, 1)
+        certain_symbolic = (force_workflow == "symbolic"
+                            or (force_workflow is None
+                                and avg >= cfg.upper_bound_avg_products
+                                and er < cfg.er_threshold))
+        if certain_symbolic and on_cpu:
+            prework["symbolic_pred"] = np.asarray(
+                esc_mod.symbolic_exact_host(
+                    a_ptr_host, host(a.indices), host(b.indptr),
+                    host(b.indices), num_rows_a=a.m, n_cols_b=b.n),
+                np.float64)
+
+    # ---------------- analysis ----------------
+    t0 = time.perf_counter()
+    ov_s, ov_pending = 0.0, False
+    if analysis is None:
+        analysis = analyze(a, b, cfg, sketch_cache=sketch_cache,
+                           known_sizes=known_sizes,
+                           overlap_work=_wave2_prework)
+        ov_s = analysis.wave2_overlap_seconds
+        ov_pending = analysis.wave2_overlapped
+    if known_sizes is None and analysis.known_sizes is not None:
+        known_sizes = analysis.known_sizes
+    wf = ("known" if known_sizes is not None
+          else (force_workflow or analysis.workflow))
+    products = np.asarray(analysis.products_row, np.int64)
+    total_products = analysis.total_products
+    out_lo = np.asarray(analysis.out_lo)
+    out_hi = np.asarray(analysis.out_hi)
+    stage["analysis"] = time.perf_counter() - t0
+    trace.add_span("plan.analysis", t0, stage["analysis"], workflow=wf)
+
+    # ---------------- size prediction ----------------
+    t0 = time.perf_counter()
+    sketches = analysis.b_sketches
+    if wf == "known":
+        pred = np.asarray(known_sizes, np.float64)
+        pred = np.where(products > 0, np.maximum(pred, 1.0), 0.0)
+        pred = np.minimum(pred, products)
+    elif wf == "estimation":
+        if sketches is None:
+            sketches = sketches_for(b, analysis.m_regs, cfg.seed,
+                                    sketch_cache)
+        # one all-zero sentinel row: the HLL identity, the merge's pad target
+        sk = torch.cat([sketches, torch.zeros((1, sketches.shape[1]),
+                                              dtype=torch.int32,
+                                              device=sketches.device)])
+        est = sharded_merge_estimate(a, sk, clip_max=b.n)
+        pred = np.maximum(np.asarray(est, np.float64), 1.0)
+        pred = np.where(products > 0, pred, 0.0)
+        pred = np.minimum(pred, products)  # distinct count <= products
+    elif wf == "symbolic":
+        pred = prework.get("symbolic_pred")
+        if pred is None and on_cpu:
+            pred = np.asarray(esc_mod.symbolic_exact_host(
+                a_ptr_host, host(a.indices), host(b.indptr), host(b.indices),
+                num_rows_a=a.m, n_cols_b=b.n), np.float64)
+        elif pred is None:
+            pred = host(esc_mod.symbolic_exact(
+                a.indptr, a.indices, b.indptr, b.indices, num_rows_a=a.m,
+                n_cols_b=b.n)).astype(np.float64)
+    else:  # upper_bound
+        pred = products.astype(np.float64)
+    stage["prediction"] = time.perf_counter() - t0
+    trace.add_span("plan.prediction", t0, stage["prediction"])
+
+    # ---------------- binning ----------------
+    t0 = time.perf_counter()
+    assisted_cr = analysis.conservative_cr if (assisted and wf == "upper_bound"
+                                               and analysis.cr_mean) else None
+    hash_enabled = hybrid and cfg.hash_rung
+    ref_tuned = (tuning_mod.hash_tuning_for(tuning_mod.REFERENCE_RUNG,
+                                            device=dev)
+                 if hash_enabled else tuning_mod.DEFAULT_TUNING)
+    plan = plan_bins(pred, products, out_lo, out_hi, a_row_nnz, b.n,
+                     expansion=cfg.expansion_for(analysis.m_regs),
+                     workflow=wf, esc_enabled=hybrid,
+                     assisted_cr=assisted_cr, hash_enabled=hash_enabled,
+                     load_factor=ref_tuned.load_factor,
+                     tile_rows=ref_tuned.tile_rows)
+    if not hybrid:
+        # V1/V2: long rows fall back to the global ESC pass instead of the
+        # column-tiled kernel (the paper's 'nonadaptive global kernel')
+        longrow_rows = np.concatenate(
+            [bn.rows for bn in plan.dense_bins if bn.is_longrow]
+            or [np.zeros(0, np.int64)])
+        plan = BinPlan(
+            dense_bins=[bn for bn in plan.dense_bins if not bn.is_longrow],
+            esc_rows=np.concatenate([plan.esc_rows, longrow_rows]),
+            esc_caps=np.concatenate(
+                [plan.esc_caps, products[longrow_rows]]),
+            empty_rows=plan.empty_rows, hash_bins=plan.hash_bins)
+
+    dense_execs: List[DenseBinExec] = []
+    for bn in plan.dense_bins:
+        pos, valid, a_rows, a_starts, a_lens = kops.prep_bin_structure(
+            a, b, bn.rows, bn.ell_width)
+        lo_arr = (out_lo[bn.rows] if not bn.is_longrow
+                  else np.zeros(len(bn.rows)))
+        row_lo = torch.from_numpy(
+            lo_arr.reshape(-1, 1).astype(np.int32)).to(dev)
+        dense_execs.append(DenseBinExec(
+            window=bn.window, col_tiles=bn.col_tiles, cap=bn.cap,
+            rows=bn.rows, ell_width=bn.ell_width, is_longrow=bn.is_longrow,
+            pos=pos, valid=valid, a_rows=a_rows, a_starts=a_starts,
+            a_lens=a_lens, row_lo=row_lo))
+
+    hash_execs: List[HashBinExec] = []
+    for hb in plan.hash_bins:
+        pos, valid, a_rows, a_starts, a_lens = kops.prep_bin_structure(
+            a, b, hb.rows, hb.ell_width)
+        tuned = tuning_mod.hash_tuning_for(hb.table, device=dev)
+        hash_execs.append(HashBinExec(
+            table=hb.table, spill=hb.spill, rows=hb.rows,
+            ell_width=hb.ell_width, pos=pos, valid=valid, a_rows=a_rows,
+            a_starts=a_starts, a_lens=a_lens, f_chunk=tuned.f_chunk,
+            tile=tuned.tile_rows))
+
+    esc_exec = None
+    if len(plan.esc_rows):
+        rows = plan.esc_rows
+        if (prework.get("esc_rows") is not None
+                and np.array_equal(prework["esc_rows"], rows)):
+            sub_ptr, src = prework["sub_ptr"], prework["src"]
+            p_cap = prework["p_cap"]
+        else:
+            sub_ptr, src = flat_gather_index(a_ptr_host, rows)
+            p_cap = int(products[rows].sum())
+        src_t = torch.from_numpy(src).to(dev)
+        esc_exec = EscExec(
+            rows=rows,
+            sub_indptr=torch.from_numpy(sub_ptr.astype(np.int32)).to(dev),
+            sub_indices=a.indices[src_t], src=src_t, out_cap=p_cap)
+    stage["binning"] = time.perf_counter() - t0
+    trace.add_span("plan.binning", t0, stage["binning"])
+
+    decision = obs_accuracy.record_decision(
+        workflow=wf, forced=force_workflow, feed_forward=(wf == "known"),
+        er=analysis.er, sampled_cr=analysis.sampled_cr,
+        nproducts_avg=analysis.nproducts_avg, cfg=cfg)
+
+    return ExecutionPlan(
+        key=key, shape_a=a.shape, shape_b=b.shape, workflow=wf,
+        assisted=assisted, hybrid=hybrid, cfg=cfg, products=products,
+        out_lo=out_lo, dense=dense_execs, esc=esc_exec, hash=hash_execs,
+        empty_rows=plan.empty_rows, bins_describe=plan.describe(),
+        er=analysis.er, sampled_cr=analysis.sampled_cr,
+        nproducts_avg=analysis.nproducts_avg, total_products=total_products,
+        m_regs=analysis.m_regs, b_sketches=sketches
+        if wf == "estimation" else analysis.b_sketches,
+        build_seconds=stage, feed_forward=(wf == "known"),
+        wave2_overlap_seconds=ov_s, wave2_overlapped=ov_pending,
+        pred_row_nnz=np.asarray(pred, np.float64), decision=decision)
+
+
+def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
+                 stage: Optional[Dict[str, float]] = None,
+                 cache_hit: bool = False,
+                 executor: str = "pipelined") -> Tuple[CSR, OceanReport]:
+    """Run a frozen plan against (possibly new) values of A and B."""
+    from .executor import execute_plan as _execute
+    return _execute(plan, a, b, stage=stage, cache_hit=cache_hit,
+                    executor=executor)
+
+
+# ---------------------------------------------------------------------------
+# Plan cache
+# ---------------------------------------------------------------------------
+
+class PlanCache:
+    """Thread-safe LRU cache of plans keyed by structure hash."""
+
+    def __init__(self, maxsize: int = 32):
+        self.maxsize = maxsize
+        self._plans: "OrderedDict[str, ExecutionPlan]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def lookup(self, key: str):
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plans.move_to_end(key)
+                self.hits += 1
+            else:
+                self.misses += 1
+            return plan
+
+    def peek(self, key: str):
+        """Non-counting lookup (still refreshes LRU recency)."""
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plans.move_to_end(key)
+            return plan
+
+    def insert(self, key: str, plan) -> None:
+        with self._lock:
+            self._plans[key] = plan
+            self._plans.move_to_end(key)
+            while len(self._plans) > self.maxsize:
+                self._plans.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._plans.clear()
+            self.hits = 0
+            self.misses = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._plans)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "size": len(self._plans)}
+
+
+DEFAULT_PLAN_CACHE = PlanCache()
