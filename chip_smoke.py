@@ -4,24 +4,34 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # 2**20-row matrices (default)
-    python3 chip_smoke.py --log2-rows 14   # a quick, small run
+    python3 chip_smoke.py --log2-rows 14 --graph-scale 12   # a quick run
 
 Phases, each of which raises on failure:
 
 1. print the card, the torch/CUDA versions, and build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (build seconds printed);
 2. main path: ``repro_torch.core.workflow.ocean_spgemm(a, a)`` on a banded
-   matrix (estimation workflow: ``hll_merge`` + dense windows) and a
-   power-law matrix (symbolic workflow: hash bins + long-row dense tiles),
-   each called cold (plan built) and warm (plan-cache hit), with every
-   kernel's launch count set to 0 just before each matrix and read just
-   after, and the kernels each matrix's path must launch checked; C is
-   checked against ``scipy.sparse``, and one ``torch.sparse`` product of
-   the same matrix is timed as a yardstick; then one more warm call per
-   matrix under torch.profiler gives the device's busy time and idle share;
+   matrix (estimation workflow: ``hll_sketch`` + ``hll_merge`` + dense
+   windows) and a power-law matrix (symbolic workflow: the count kernel on
+   windowed rows, hash bins, long-row dense tiles), each called cold (plan
+   built) and warm (plan-cache hit), with every kernel's launch count set
+   to 0 just before each matrix and read just after, and the kernels each
+   matrix's path must launch checked; C is checked against
+   ``scipy.sparse``, and one ``torch.sparse`` product of the same matrix is
+   timed as a yardstick; then one more warm call per matrix under
+   torch.profiler gives the device's busy time and idle share;
+2c. the graph path, each call counted the same way: ``triangle_count`` on
+   an R-MAT graph of ``2**graph_scale`` vertices, cold and warm on one plan
+   cache (the count kernel in its symbolic prediction; checked against
+   scipy's ``sum(L .* (L @ L))``); ``k_hop_frontier`` over 3 hops on an
+   R-MAT graph 4x larger (``hll_sketch`` + ``hll_merge`` in the hops that
+   take estimation; each hop's vertex set checked against scipy boolean
+   products); ``markov_cluster`` for 4 iterations on one 16x smaller (each
+   iteration checked against a scipy expand -> inflate -> normalize ->
+   prune step from the same input, the labels against the scipy twin's);
 3. kernels against their plain PyTorch versions, on the card, on real bins
-   of the phase-2 plans at the shapes the main path launches them with,
-   with times from CUDA events and each kernel's bound;
+   of the phase-2 and phase-2c paths at the shapes those paths launch them
+   with, with times from CUDA events and each kernel's bound;
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
    against scipy, which also drives the ESC and upper-bound paths.
 
@@ -32,6 +42,7 @@ with a non-zero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -153,15 +164,79 @@ def library_product(a, runs: int):
 def reset_counts(kd, kh, kl) -> None:
     kd.spgemm_dense_bin.window_launches = 0
     kd.spgemm_dense_bin.longrow_launches = 0
+    kd.spgemm_count_bin.launches = 0
     kh.spgemm_hash_bin.launches = 0
     kl.hll_merge.launches = 0
+    kl.hll_sketch.launches = 0
 
 
 def read_counts(kd, kh, kl) -> dict:
     return {"dense_window": kd.spgemm_dense_bin.window_launches,
             "dense_longrow": kd.spgemm_dense_bin.longrow_launches,
             "hash": kh.spgemm_hash_bin.launches,
-            "hll_merge": kl.hll_merge.launches}
+            "hll_merge": kl.hll_merge.launches,
+            "hll_sketch": kl.hll_sketch.launches,
+            "count": kd.spgemm_count_bin.launches}
+
+
+def log_call(label, rep, wall, launched, peak_gib=None) -> None:
+    """One multiply's report, as phases 2 and 2c print it (``wall`` None:
+    a step of a chain, whose stages are printed)."""
+    peak = "" if peak_gib is None else f" peak_mem {peak_gib:.2f} GiB"
+    wall = "" if wall is None else f" wall {wall:.3f} s"
+    log(f"{label}:{wall} workflow {rep.workflow} "
+        f"hit {rep.plan_cache_hit} nnz_out {rep.nnz_out} "
+        f"overflow_rows {rep.overflow_rows} products "
+        f"{rep.total_products} er {rep.er:.2f} cr {rep.sampled_cr}{peak}")
+    log(f"  stages {json.dumps({k: round(v, 4) for k, v in rep.stage_seconds.items()})}")
+    if launched is not None:
+        log(f"  launches {json.dumps(launched)}")
+    log(f"  bins {json.dumps(rep.bins)}")
+
+
+def mcl_twin_step(m_sp, power: float):
+    """One MCL iteration in scipy from the same input, in f32 as the port
+    computes it (the column sums in f64): expand, Hadamard power,
+    normalize columns. Returns the product (its structure) with the
+    normalized values before the prune."""
+    p = (m_sp @ m_sp).tocsr()
+    p.sort_indices()
+    pre = np.power(np.abs(p.data), power).astype(np.float32)
+    colsum = np.bincount(p.indices, weights=pre.astype(np.float64),
+                         minlength=p.shape[1])
+    denom = colsum[p.indices]
+    p.data = (pre / np.where(denom == 0.0, 1.0, denom)).astype(np.float32)
+    return p
+
+
+def csr_keys(x) -> np.ndarray:
+    rows = np.repeat(np.arange(x.shape[0], dtype=np.int64),
+                     np.diff(x.indptr))
+    return rows * x.shape[1] + x.indices.astype(np.int64)
+
+
+def direct_labels(x) -> np.ndarray:
+    """Per column the row of its largest value, lowest row on ties (the
+    vertex itself for an empty column): MCL's labels before the attractor
+    chains collapse."""
+    rows = np.repeat(np.arange(x.shape[0], dtype=np.int64),
+                     np.diff(x.indptr))
+    cols = x.indices.astype(np.int64)
+    label = np.arange(x.shape[1], dtype=np.int64)
+    order = np.lexsort((rows, -x.data.astype(np.float64), cols))
+    first = np.ones(len(order), bool)
+    first[1:] = cols[order][1:] != cols[order][:-1]
+    label[cols[order][first]] = rows[order][first]
+    return label
+
+
+def collapse_labels(label: np.ndarray) -> np.ndarray:
+    for _ in range(int(np.ceil(np.log2(max(len(label), 2)))) + 1):
+        nxt = label[label]
+        if np.array_equal(nxt, label):
+            break
+        label = nxt
+    return label
 
 
 def longrow_edge_cases(kd, dev) -> None:
@@ -237,6 +312,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=20,
                     help="rows (= columns) of the two main-path matrices")
+    ap.add_argument("--graph-scale", type=int, default=16,
+                    help="R-MAT scale of the triangle graph; k-hop runs at "
+                    "this + 2, MCL at this - 4")
     args = ap.parse_args()
 
     import torch
@@ -244,7 +322,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
-    from repro_torch.core import formats, planner, workflow
+    import scipy.sparse as sp
+    from repro_torch import graph
+    from repro_torch.core import analysis, formats, planner, workflow
+    from repro_torch.core import hll as chll
     from repro_torch.core.analysis import OceanConfig
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import hll as kl
@@ -303,16 +384,9 @@ def main() -> int:
             spans = {}
             for ev in tracer.events():
                 spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
-            log(f"{name} {call}: wall {wall:.3f} s workflow {rep.workflow} "
-                f"hit {rep.plan_cache_hit} nnz_out {rep.nnz_out} "
-                f"overflow_rows {rep.overflow_rows} products "
-                f"{rep.total_products} er {rep.er:.2f} cr {rep.sampled_cr} "
-                f"peak_mem {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-                "GiB")
-            log(f"  stages {json.dumps({k: round(v, 4) for k, v in rep.stage_seconds.items()})}")
+            log_call(f"{name} {call}", rep, wall, launched,
+                     torch.cuda.max_memory_allocated() / 2**30)
             log(f"  spans {json.dumps({k: round(v, 4) for k, v in spans.items()})}")
-            log(f"  launches {json.dumps(launched)}")
-            log(f"  bins {json.dumps(rep.bins)}")
             outs.append((c, rep, wall))
         path_counts[name] = read_counts(kd, kh, kl)
         log(f"{name}: launches on its path (cold + warm) "
@@ -332,18 +406,20 @@ def main() -> int:
         mats.append(("skewed", a))
         results["skewed"] = drive("skewed", a)
     long_path = "skewed" if "skewed" in path_counts else "powerlaw"
-    need = {"banded": ["hll_merge", "dense_window"], "powerlaw": ["hash"]}
+    need = {"banded": ["hll_sketch", "hll_merge", "dense_window"],
+            "powerlaw": ["hash"]}
     need[long_path] = need.get(long_path, []) + ["dense_longrow"]
-    for path, names in need.items():
-        missing = [k for k in names if path_counts[path][k] == 0]
-        if missing:
-            raise AssertionError(f"{path}: kernels never launched on its "
-                                 f"path: {missing}")
-    counts = {k: sum(pc[k] for pc in path_counts.values())
-              for k in read_counts(kd, kh, kl)}
-    by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
-               for k in counts}
-    log(f"launches on the main path: {json.dumps(counts)}")
+
+    def require(need):
+        for path, names in need.items():
+            missing = [k for k in names if path_counts[path][k] == 0]
+            if missing:
+                raise AssertionError(f"{path}: kernels never launched on "
+                                     f"its path: {missing}")
+
+    require(need)
+    log(f"powerlaw: count kernel launches (symbolic prediction of its "
+        f"windowed rows) {path_counts['powerlaw']['count']}")
     wf = {name: outs[0][1].workflow for name, outs in results.items()}
     if wf["banded"] != "estimation":
         raise AssertionError(f"banded took {wf['banded']}, not estimation")
@@ -370,6 +446,181 @@ def main() -> int:
     done = phase("2b. torch.profiler over one more warm call per matrix")
     for name, a in mats:
         profile_call(name, a, caches[name], workflow)
+    done()
+
+    # ---------------- 2c. graph path ----------------
+    gs = args.graph_scale
+    done = phase(f"2c. graph path at R-MAT scales {gs}, {gs + 2}, {gs - 4}")
+
+    def gen_rmat(scale):
+        t0 = time.perf_counter()
+        g = graph.rmat_csr(1, scale, 16, device=dev)
+        log(f"rmat_csr(1, {scale}, 16): {g.m} vertices, {g.nnz} entries, "
+            f"generated in {time.perf_counter() - t0:.1f} s")
+        return g
+
+    # triangles: sum(L .* (L @ L)), the mask fused into the merge
+    adj_t = gen_rmat(gs)
+    low = graph.lower_triangle(adj_t)
+    tri_cache = planner.PlanCache()
+    reset_counts(kd, kh, kl)
+    tris = []
+    for call in ("cold", "warm"):
+        before = read_counts(kd, kh, kl)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tri, rep = graph.triangle_count(adj_t, cache=tri_cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log_call(f"triangles {call} (L nnz {low.nnz})", rep, wall,
+                 {k: v - before[k] for k, v in
+                  read_counts(kd, kh, kl).items()},
+                 torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  triangles {tri}")
+        tris.append(tri)
+    path_counts["triangles"] = read_counts(kd, kh, kl)
+    t0 = time.perf_counter()
+    l_sp = to_scipy(low).astype(np.float64)
+    want = int(round((l_sp @ l_sp).multiply(l_sp).sum()))
+    if tris != [want, want]:
+        raise AssertionError(f"triangles {tris}, scipy {want}")
+    log(f"triangles: {want} as scipy (check {time.perf_counter() - t0:.1f}"
+        " s)")
+
+    class RecordingRunner(graph.ChainRunner):
+        """Keeps each step's input, output, report and kernel launches."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.steps = []
+
+        def step(self, c, **kw):
+            before = read_counts(kd, kh, kl)
+            out, rep = super().step(c, **kw)
+            launched = {k: v - before[k]
+                        for k, v in read_counts(kd, kh, kl).items()}
+            self.steps.append((c, out, rep, launched))
+            return out, rep
+
+    # k-hop: boolean chain F_{k+1} = sign(F_k @ A)
+    adj_k = gen_rmat(gs + 2)
+    t0 = time.perf_counter()
+    formats.structure_hash(adj_k)
+    log(f"k-hop: structure_hash of the RHS (the chain's sketch-cache key, "
+        f"host copy of the pattern) {time.perf_counter() - t0:.3f} s")
+    seeds = [0, 1, 2]
+    reset_counts(kd, kh, kl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = RecordingRunner(adj_k)
+    fronts, kres = graph.k_hop_frontier(adj_k, seeds, 3, runner=runner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_counts["k-hop"] = read_counts(kd, kh, kl)
+    log(f"k-hop: wall {wall:.3f} s for 3 hops, launches "
+        f"{json.dumps(path_counts['k-hop'])}")
+    a_k = to_scipy(adj_k)
+    cur = np.zeros(adj_k.n, np.float64)
+    cur[seeds] = 1.0
+    for hop, (f, (_, _, rep, launched)) in enumerate(
+            zip(fronts, runner.steps), 1):
+        log_call(f"k-hop hop {hop} (frontier {len(f)})", rep, None,
+                 launched)
+        cur = (a_k.T @ cur != 0).astype(np.float64)
+        if not np.array_equal(f, np.nonzero(cur)[0]):
+            raise AssertionError(f"k-hop hop {hop}: vertex set differs "
+                                 "from scipy")
+        if rep.workflow != "estimation":
+            log(f"  hop {hop} took {rep.workflow}: er {rep.er:.2f}, sampled"
+                f" cr {rep.sampled_cr} (estimation needs er >= 8 and "
+                "cr >= 8)")
+    log(f"k-hop: vertex sets of every hop as scipy; chain stats "
+        f"{json.dumps(dataclasses.asdict(kres.stats))}")
+    if "estimation" in kres.stats.workflows:
+        require({"k-hop": ["hll_sketch", "hll_merge"]})
+
+    # MCL: one fused expand -> inflate -> normalize -> prune per iteration
+    adj_m = gen_rmat(gs - 4)
+
+    runner = RecordingRunner(None)
+    reset_counts(kd, kh, kl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcl = graph.markov_cluster(adj_m, iterations=4, runner=runner)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path_counts["MCL"] = read_counts(kd, kh, kl)
+    log(f"MCL: wall {wall:.3f} s for {len(runner.steps)} iterations, "
+        f"launches {json.dumps(path_counts['MCL'])}, clusters "
+        f"{len(np.unique(mcl.labels))}")
+    thr, near_tol = 1e-4, 1e-6
+    m0 = (to_scipy(adj_m) + sp.identity(adj_m.n, dtype=np.float32,
+                                        format="csr")).tocsr()
+    m0.data[:] = 1.0
+    m0.sort_indices()
+    m0.data = (m0.data / np.bincount(m0.indices, weights=m0.data.astype(
+        np.float64), minlength=m0.shape[1])[m0.indices]).astype(np.float32)
+    first = to_scipy(runner.steps[0][0])
+    if not (np.array_equal(first.indptr, m0.indptr)
+            and np.array_equal(first.indices, m0.indices)):
+        raise AssertionError("MCL: the first iterate's structure differs "
+                             "from scipy's normalize(A + I)")
+    np.testing.assert_allclose(first.data, m0.data, rtol=1e-6)
+    mcl_err = 0.0
+    near_cols = np.zeros(adj_m.n, bool)
+    for it, (m_in, m_out, rep, launched) in enumerate(runner.steps, 1):
+        twin = mcl_twin_step(to_scipy(m_in), 2.0)
+        ours = to_scipy(m_out)
+        tkeys, okeys = csr_keys(twin), csr_keys(ours)
+        kept = np.abs(twin.data) >= thr
+        near = np.abs(np.abs(twin.data) - thr) <= near_tol
+        near_cols |= np.bincount(twin.indices[near],
+                                 minlength=adj_m.n).astype(bool)
+        flips = np.setxor1d(tkeys[kept], okeys)
+        pos = np.searchsorted(tkeys, flips)
+        ok = (pos < len(tkeys)) & (tkeys[np.minimum(pos, len(tkeys) - 1)]
+                                   == flips)
+        if not (ok.all() and near[pos[ok]].all()):
+            raise AssertionError(f"MCL iteration {it}: {len(flips)} entries"
+                                 " differ from scipy, not all within "
+                                 f"{near_tol} of the prune threshold")
+        common = np.isin(okeys, tkeys[kept])
+        tv = twin.data[kept][np.isin(tkeys[kept], okeys)]
+        np.testing.assert_allclose(ours.data[common], tv, rtol=1e-4, atol=0,
+                                   err_msg=f"MCL iteration {it}")
+        err = float(np.abs(ours.data[common] - tv).max()) if len(tv) else 0.0
+        mcl_err = max(mcl_err, err)
+        log_call(f"MCL iteration {it}", rep, None, launched)
+        log(f"  nnz {ours.nnz} as scipy's step but {len(flips)} entries; "
+            f"{int(near.sum())} entries within {near_tol} of the threshold; "
+            f"max abs diff {err:.3g}")
+    twin_last = mcl_twin_step(to_scipy(runner.steps[-1][0]), 2.0)
+    twin_last.data[np.abs(twin_last.data) < thr] = 0.0
+    twin_last.eliminate_zeros()
+    d_ours, d_twin = direct_labels(to_scipy(mcl.matrix)), direct_labels(
+        twin_last)
+    moved = np.nonzero(d_ours != d_twin)[0]
+    unexplained = moved[~near_cols[moved]]
+    if len(unexplained):
+        raise AssertionError(f"MCL: {len(unexplained)} vertices pick another"
+                             " attractor than scipy's twin with no entry "
+                             "near the prune threshold in their column")
+    if not len(moved) and not np.array_equal(mcl.labels,
+                                             collapse_labels(d_twin)):
+        raise AssertionError("MCL: labels differ from scipy's twin")
+    log(f"MCL: labels as scipy's twin"
+        + (f" but {len(moved)} vertices whose column holds an entry near the"
+           " prune threshold" if len(moved) else "")
+        + f"; max abs diff over the iterations {mcl_err:.3g}")
+
+    require({"triangles": ["count"]})
+    counts = {k: sum(pc[k] for pc in path_counts.values())
+              for k in read_counts(kd, kh, kl)}
+    by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
+               for k in counts}
+    log(f"launches on every path: {json.dumps(counts)}")
+    log(f"launches by path: {json.dumps(by_path)}")
     done()
 
     # ---------------- 3. kernels vs plain ----------------
@@ -504,6 +755,90 @@ def main() -> int:
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": {"RA": ra, "nnz": a_band.nnz, "m": m}})
+
+    # hll_sketch: B's sketches, as the estimation analysis builds them
+    def sketch_case(label, b, m):
+        ind = b.indices[: b.nnz]
+        regs = kl.hll_sketch(b.indptr, ind, m_regs=m)
+        pregs = chll.sketch_registers_impl(b.indptr, ind, m, b.m)
+        torch.cuda.synchronize()
+        if not torch.equal(regs, pregs):
+            raise AssertionError(f"hll_sketch {label}: registers differ "
+                                 "from plain")
+        ms = time_cuda(lambda: kl.hll_sketch(b.indptr, ind, m_regs=m),
+                       KERNEL_RUNS)
+        plain_ms = time_cuda(
+            lambda: chll.sketch_registers_impl(b.indptr, ind, m, b.m), 3)
+        by = b.nnz * 4 + (b.m + 1) * 4 + b.m * m * 4
+        b_ms, b_by = bound(by, 12.0 * b.nnz, INT32_OPS_PER_S)
+        log(f"hll_sketch {label}: R {b.m} ids {b.nnz} m {m} exact; kernel "
+            f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {b_ms:.3f} ms "
+            f"({b_by})")
+        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": {"R": b.m, "ids": b.nnz, "m": m, "B": label}}
+
+    sk_band = sketch_case("banded", a_band, plan_b.m_regs)
+    sk_pl = sketch_case("powerlaw", a_pl, 32)
+    kernels.append({
+        "name": "hll_sketch", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hll_sketch.cu",
+        "replaces": "src/repro/kernels/hll.py:64",
+        "launches": counts["hll_sketch"],
+        "launches_by_path": by_path["hll_sketch"], **sk_band,
+        "library_ms": None, "also": sk_pl})
+
+    # the count kernel: one launch of the triangle path's symbolic stage,
+    # and banded's W 256 bin with the TPU contract's counts
+    def count_case(label, a_rows, a_starts, a_lens, row_lo, b_cols, window,
+                   want_counts):
+        args_ = (a_rows, a_starts, a_lens, row_lo, b_cols)
+        kw = dict(window=window, want_counts=want_counts)
+        cnt, nnz = kd.spgemm_count_bin(*args_, **kw)
+        pcnt, pnnz = kd.count_bin_plain(*args_, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(nnz, pnnz) or (
+                want_counts and not torch.equal(cnt, pcnt)):
+            raise AssertionError(f"count {label}: differs from plain")
+        ms = time_cuda(lambda: kd.spgemm_count_bin(*args_, **kw),
+                       KERNEL_RUNS)
+        plain_ms = time_cuda(lambda: kd.count_bin_plain(*args_, **kw), 3)
+        r, e = a_rows.shape
+        products = float(torch.where(a_rows >= 0, a_lens, 0).long().sum())
+        live = float((a_rows >= 0).sum())
+        by = (a_rows.numel() * 4 + live * 8 + r * 4
+              + unique_b_bytes(a_rows, a_lens) / 2 + r * 4
+              + (r * window * 4 if want_counts else 0))
+        b_ms, b_by = bound(by, products, INT32_OPS_PER_S)
+        log(f"count {label}: R {r} E {e} W {window} products "
+            f"{int(products)} counts {want_counts} exact; kernel {ms:.3f} "
+            f"ms plain {plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}, "
+            f"{by / 1e9:.4f} GB)")
+        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "shape": {"R": r, "E": e, "window": window,
+                          "want_counts": want_counts, "bin": label}}
+
+    prod_t, lo_t, hi_t = (formats.host(x)
+                          for x in analysis._fused_stats(low, low))
+    groups = planner.count_groups(lo_t, hi_t, prod_t,
+                                  np.diff(formats.host(low.indptr)))
+    rows, window, ell = max(groups, key=lambda g: len(g[0]) * g[2])
+    _, _, ar, ast, aln = ops.prep_bin_structure(low, low, rows, ell)
+    row_lo = torch.from_numpy(lo_t[rows].reshape(-1, 1).astype(
+        np.int32)).to(dev)
+    b_cols_low = ops.pad_b_flat(low)[0]
+    cnt_tri = count_case("triangles", ar, ast, aln, row_lo, b_cols_low,
+                         window, False)
+    cnt_band = count_case("banded W256", be_w.a_rows, be_w.a_starts,
+                          be_w.a_lens, be_w.row_lo, ops.pad_b_flat(a_band)[0],
+                          be_w.window, True)
+    kernels.append({
+        "name": "spgemm_count_bin", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spgemm_count.cu",
+        "replaces": "src/repro/kernels/spgemm_dense.py:148",
+        "launches": counts["count"], "launches_by_path": by_path["count"],
+        **cnt_tri, "library_ms": None, "also": cnt_band})
     done()
 
     # ---------------- 4. small suite on the card ----------------

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels import ops as kops
 from ..obs import trace
 from . import hll
 from .dispatch import (Launch, host_arrays, mark_in_flight,
@@ -150,13 +151,13 @@ def _pick_sample_rows(num_rows: int, cfg: OceanConfig) -> np.ndarray:
 
 def sketches_for(b: CSR, m_regs: int, seed: int,
                  sketch_cache: Optional[Dict] = None) -> torch.Tensor:
-    """B-row sketches, reused from ``sketch_cache`` (keyed by
-    ``(m_regs, seed)``) when present."""
+    """B-row sketches (nB, m_regs), built by ``kops.build_sketches_op`` (the
+    ``hll_sketch`` kernel on a GPU) and reused from ``sketch_cache`` (keyed
+    by ``(m_regs, seed)``) when present."""
     key = (m_regs, seed)
     if sketch_cache is not None and key in sketch_cache:
         return sketch_cache[key]
-    sk = hll.build_sketches(b.indptr, b.indices, m_regs=m_regs,
-                            num_rows=b.m, seed=seed)
+    sk = kops.build_sketches_op(b, m_regs, seed)[: b.m]
     if sketch_cache is not None:
         sketch_cache[key] = sk
     return sk
@@ -307,7 +308,6 @@ def sharded_merge_estimate(a: CSR, sketches_with_sentinel, *,
                            devices=None) -> np.ndarray:
     """Per-row HLL output-size estimates for C = A @ B (prediction stage).
     Single device only: the merge kernel reads A's CSR directly."""
-    from ..kernels import ops as kops
     resolve_devices(devices)
     _, est = kops.merge_estimate_op(a, sketches_with_sentinel,
                                     clip_max=clip_max)

@@ -13,16 +13,18 @@ PyTorch port of the single-device ``repro.core.executor``:
 
 Slabs are row-disjoint and every kernel's per-row output is independent of
 the other rows of its launch, so the ``serial``, ``pipelined`` and
-``threaded`` collect modes give the same CSR bit for bit.
-``MergePostOps`` and the sharded executor are not ported yet (ROADMAP
-queue 1, items 7 and 9).
+``threaded`` collect modes give the same CSR bit for bit, fused
+:class:`MergePostOps` included (column-sum partials fold in dispatch
+order). The post-ops run on the host slabs, in numpy, as the reference's
+do. The sharded executor is not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +51,102 @@ class _Slab:
     def __init__(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                  nnz: np.ndarray):
         self.rows, self.cols, self.vals, self.nnz = rows, cols, vals, nnz
+
+
+# ---------------------------------------------------------------------------
+# Fused merge post-processing (graph workloads: mask / inflate / prune)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MergePostOps:
+    """Post-processing fused into the executor's merge, applied to each
+    result slab as it lands on the host (``repro_torch.graph.ops`` builds
+    these):
+
+    * ``mask_indptr``/``mask_indices``: keep only entries whose (row, col)
+      is in the mask pattern — ``mask .* (A @ B)``.
+    * ``transform``: elementwise value map (Hadamard power for MCL
+      inflation, ``sign`` for boolean semirings); sound per slab because
+      each (row, col) entry is accumulated within exactly one slab.
+    * ``col_normalize``: divide every entry by its column's total of
+      post-transform values; each slab contributes a column-sum partial and
+      the partials fold in dispatch order at compaction time.
+    * ``threshold``: drop entries with ``|value| < threshold`` (after
+      normalization when ``col_normalize`` is set, else per slab).
+
+    Stage order: mask -> transform -> [colsum partial] -> prune/normalize.
+    Overflow scanning runs on the unfiltered per-row counts, so post-ops
+    never change which rows take the exact-ESC fallback.
+    """
+    n_cols: int
+    mask_indptr: Optional[np.ndarray] = None
+    mask_indices: Optional[np.ndarray] = None
+    transform: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    threshold: float = 0.0
+    col_normalize: bool = False
+
+    def __post_init__(self):
+        self._mask_keys = None
+        if self.mask_indptr is not None:
+            ptr = np.asarray(self.mask_indptr, np.int64)
+            nnz = int(ptr[-1])
+            idx = np.asarray(self.mask_indices, np.int64)[:nnz]
+            rows = np.repeat(np.arange(len(ptr) - 1, dtype=np.int64),
+                             np.diff(ptr))
+            # sorted already for a canonical CSR; sort for caller-built masks
+            self._mask_keys = np.sort(rows * np.int64(self.n_cols) + idx)
+
+
+def _compact_rows(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                  keep: np.ndarray) -> _Slab:
+    """Shift kept entries left into a fresh fixed-width slab (order, and so
+    the column sorting within a row, preserved)."""
+    new_nnz = keep.sum(axis=1).astype(np.int64)
+    w2 = max(int(new_nnz.max()) if len(new_nnz) else 0, 1)
+    out_cols = np.full((keep.shape[0], w2), PAD_COL, np.int32)
+    out_vals = np.zeros((keep.shape[0], w2), vals.dtype)
+    ri, ci = np.nonzero(keep)
+    dest = (np.cumsum(keep, axis=1) - 1)[ri, ci]
+    out_cols[ri, dest] = cols[ri, ci]
+    out_vals[ri, dest] = vals[ri, ci]
+    return _Slab(rows, out_cols, out_vals, new_nnz)
+
+
+def _filter_slab(slab: _Slab, post: MergePostOps
+                 ) -> Tuple[_Slab, Optional[np.ndarray]]:
+    """The per-slab half of the post-ops (mask, transform, eager prune):
+    the filtered slab and its column-sum partial."""
+    r, w = slab.cols.shape
+    if r == 0:
+        return slab, (np.zeros(post.n_cols, np.float64)
+                      if post.col_normalize else None)
+    slot = np.arange(w, dtype=np.int64)[None, :]
+    keep = (slot < slab.nnz[:, None]) & (slab.cols != PAD_COL)
+    vals = slab.vals
+    if post._mask_keys is not None:
+        keys = (slab.rows[:, None].astype(np.int64) * np.int64(post.n_cols)
+                + slab.cols.astype(np.int64))
+        pos = np.searchsorted(post._mask_keys, keys)
+        member = np.zeros(keys.shape, bool)
+        in_rng = pos < len(post._mask_keys)
+        member[in_rng] = post._mask_keys[pos[in_rng]] == keys[in_rng]
+        keep &= member
+    if post.transform is not None:
+        # zero the dropped slots first so transforms need not map 0 -> 0
+        vals = np.where(keep, post.transform(np.where(keep, vals, 0)), 0)
+        vals = vals.astype(slab.vals.dtype, copy=False)
+    eager_prune = post.threshold > 0.0 and not post.col_normalize
+    if eager_prune:
+        keep &= np.abs(vals) >= post.threshold
+    colsum = None
+    if post.col_normalize:
+        colsum = np.zeros(post.n_cols, np.float64)
+        np.add.at(colsum, slab.cols[keep].astype(np.int64),
+                  vals[keep].astype(np.float64))
+    if post._mask_keys is None and not eager_prune:
+        # values-only post: no entry drops, so no re-compaction
+        return _Slab(slab.rows, slab.cols, vals, slab.nnz), colsum
+    return _compact_rows(slab.rows, slab.cols, vals, keep), colsum
 
 
 def _esc_to_slab(indptr: np.ndarray, indices: np.ndarray,
@@ -161,16 +259,35 @@ _FALLBACK_ORDER = 1 << 31
 
 
 class _MergeState:
-    """Incremental host merge: overflow scanning and the counting half of
-    compaction, fed one slab at a time (add-order independent)."""
+    """Incremental host merge: overflow scanning, fused post-ops and the
+    counting half of compaction, fed one slab at a time (add-order
+    independent)."""
 
-    def __init__(self):
+    def __init__(self, m_rows: int, post: Optional[MergePostOps] = None):
         self.kept: List[Tuple[int, _Slab]] = []
         self.overflow: Dict[int, np.ndarray] = {}
         # which bin family's capacity the overflowed rows broke
         self.overflow_causes: Dict[str, int] = {}
+        self.post = post
+        self.colsum_parts: List[Tuple[int, np.ndarray]] = []
+        # exact per-row nnz of the raw (unfiltered) product, which graph
+        # chains feed forward; only kept when post-ops may filter it
+        self.raw_counts = (np.zeros(m_rows, np.int64)
+                           if post is not None else None)
+
+    def _admit(self, order: int, slab: _Slab) -> None:
+        if self.post is not None:
+            slab, colsum = _filter_slab(slab, self.post)
+            if colsum is not None:
+                self.colsum_parts.append((order, colsum))
+        self.kept.append((order, slab))
 
     def add(self, it: Launch, slab: _Slab) -> None:
+        if self.raw_counts is not None:
+            # dense counts are exact past the slab width; a hash row that
+            # overflowed counts failed inserts, but the fallback slab
+            # rewrites every overflowed row's count before finalize
+            self.raw_counts[slab.rows] = slab.nnz
         kind, exec_ = it.tag[:2]
         if kind in ("dense", "hash"):  # ESC caps are upper bounds
             over = slab.nnz > slab.cols.shape[1]
@@ -184,10 +301,12 @@ class _MergeState:
                 keep = ~over
                 slab = _Slab(slab.rows[keep], slab.cols[keep],
                              slab.vals[keep], slab.nnz[keep])
-        self.kept.append((it.order, slab))
+        self._admit(it.order, slab)
 
     def add_fallback(self, slab: _Slab) -> None:
-        self.kept.append((_FALLBACK_ORDER, slab))
+        if self.raw_counts is not None:
+            self.raw_counts[slab.rows] = slab.nnz
+        self._admit(_FALLBACK_ORDER, slab)
 
     def fallback_rows(self) -> Optional[np.ndarray]:
         """Overflowed rows in dispatch order."""
@@ -197,7 +316,36 @@ class _MergeState:
             [self.overflow[k] for k in sorted(self.overflow)])
 
     def finalize(self) -> List[_Slab]:
-        return [s for _, s in sorted(self.kept, key=lambda t: t[0])]
+        """The deferred half of the post-ops: fold the column-sum partials
+        in dispatch order, then normalize (and prune after it). Without
+        ``col_normalize`` the slabs in dispatch order."""
+        kept = [s for _, s in sorted(self.kept, key=lambda t: t[0])]
+        post = self.post
+        if post is None or not post.col_normalize:
+            return kept
+        colsum = np.zeros(post.n_cols, np.float64)
+        for _, part in sorted(self.colsum_parts, key=lambda t: t[0]):
+            colsum += part
+        out: List[_Slab] = []
+        for s in kept:
+            if not len(s.rows):
+                out.append(s)
+                continue
+            slot = np.arange(s.cols.shape[1], dtype=np.int64)[None, :]
+            valid = slot < s.nnz[:, None]
+            denom = colsum[np.clip(s.cols, 0, post.n_cols - 1)
+                           .astype(np.int64)]
+            # a zero column sum means every value in the column is zero
+            vals = s.vals.astype(np.float64) / np.where(denom == 0.0, 1.0,
+                                                        denom)
+            vals = np.where(valid, vals, 0.0).astype(s.vals.dtype)
+            if post.threshold > 0.0:
+                out.append(_compact_rows(
+                    s.rows, s.cols, vals,
+                    valid & (np.abs(vals) >= post.threshold)))
+            else:
+                out.append(_Slab(s.rows, s.cols, vals, s.nnz))
+        return out
 
 
 def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
@@ -223,11 +371,10 @@ def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
 # The collect policies
 # ---------------------------------------------------------------------------
 
-def _collect_serial(items, plan, a, b, stage, dispatch_s):
+def _collect_serial(items, plan, a, b, stage, dispatch_s, state):
     """One global barrier, then merge (stage keys numeric/overflow/
     postprocess)."""
     t0 = time.perf_counter()
-    state = _MergeState()
     slabs = [(it, _materialize(it)) for it in items]
     stage["numeric"] = dispatch_s + (time.perf_counter() - t0)
     trace.add_span("exec.collect", t0, time.perf_counter() - t0)
@@ -241,7 +388,7 @@ def _collect_serial(items, plan, a, b, stage, dispatch_s):
                               a.device)
     stage["postprocess"] = time.perf_counter() - t0
     trace.add_span("exec.compact", t0, stage["postprocess"])
-    return c, total, n_overflow, 0.0, state.overflow_causes
+    return c, total, n_overflow, 0.0
 
 
 def _finish_merge(state, plan, a, b, stage, dispatch_s, collect_s, merge_s):
@@ -258,10 +405,10 @@ def _finish_merge(state, plan, a, b, stage, dispatch_s, collect_s, merge_s):
     return c, total, n_overflow
 
 
-def _collect_pipelined(items, plan, a, b, stage, dispatch_s):
-    """Slabs are pulled in completion order and each one's overflow scan +
-    count accumulation runs while later slabs are still in flight."""
-    state = _MergeState()
+def _collect_pipelined(items, plan, a, b, stage, dispatch_s, state):
+    """Slabs are pulled in completion order and each one's overflow scan,
+    post-ops and count accumulation run while later slabs are still in
+    flight."""
     collect_s = merge_s = overlap_s = 0.0
     n_left = len(items)
     traced = trace.enabled()
@@ -285,14 +432,13 @@ def _collect_pipelined(items, plan, a, b, stage, dispatch_s):
             overlap_s += dt
     c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
                                          dispatch_s, collect_s, merge_s)
-    return c, total, n_overflow, overlap_s, state.overflow_causes
+    return c, total, n_overflow, overlap_s
 
 
-def _collect_threaded(items, plan, a, b, stage, dispatch_s):
+def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
     """Collect on this thread, merge on a dedicated worker thread (the sole
     mutator of the merge state), so merging proceeds while the collect loop
     blocks on a device copy."""
-    state = _MergeState()
     slabs: "queue.Queue[Optional[Tuple[Launch, _Slab]]]" = queue.Queue()
     spans: List[Tuple[float, float]] = []
     errors: List[BaseException] = []
@@ -342,7 +488,7 @@ def _collect_threaded(items, plan, a, b, stage, dispatch_s):
     overlap_s = sum(min(max(collect_end - t0, 0.0), dt) for t0, dt in spans)
     c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
                                          dispatch_s, collect_s, merge_s)
-    return c, total, n_overflow, overlap_s, state.overflow_causes
+    return c, total, n_overflow, overlap_s
 
 
 _COLLECT_OF = {PIPELINED: _collect_pipelined, THREADED: _collect_threaded,
@@ -352,8 +498,14 @@ _COLLECT_OF = {PIPELINED: _collect_pipelined, THREADED: _collect_threaded,
 def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
                  stage: Optional[Dict[str, float]] = None,
                  cache_hit: bool = False,
-                 executor: str = PIPELINED) -> Tuple[CSR, OceanReport]:
-    """Run a frozen plan against (possibly new) values of A and B."""
+                 executor: str = PIPELINED,
+                 post: Optional[MergePostOps] = None,
+                 ) -> Tuple[CSR, OceanReport]:
+    """Run a frozen plan against (possibly new) values of A and B.
+
+    ``post`` fuses mask/transform/prune/normalize stages into the merge;
+    plans are post-independent, so one plan serves masked and unmasked
+    calls alike."""
     if executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r}; expected one of "
                          f"{EXECUTORS}")
@@ -363,6 +515,9 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
             f"got {a.shape} @ {b.shape}")
     if a.device != b.device:
         raise ValueError(f"A on {a.device}, B on {b.device}")
+    if post is not None and post.n_cols != b.n:
+        raise ValueError(f"post-ops built for {post.n_cols} columns, "
+                         f"product has {b.n}")
     stage = dict(stage) if stage else {"analysis": 0.0, "prediction": 0.0,
                                        "binning": 0.0}
 
@@ -371,11 +526,16 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
     dispatch_s = time.perf_counter() - t0
     trace.add_span("exec.dispatch", t0, dispatch_s, launches=len(items))
 
-    c, total, n_overflow, overlap_s, causes = _COLLECT_OF[executor](
-        items, plan, a, b, stage, dispatch_s)
+    state = _MergeState(a.m, post)
+    c, total, n_overflow, overlap_s = _COLLECT_OF[executor](
+        items, plan, a, b, stage, dispatch_s, state)
     overlap_s = min(max(overlap_s, 0.0), stage.get("merge", 0.0))
+    causes = state.overflow_causes
 
-    exact_nnz = np.diff(np.asarray(c.indptr.cpu().numpy(), np.int64))
+    # estimation-accuracy telemetry on the raw product's row nnz (the merge
+    # state's pre-filter counts when post-ops may have pruned the output)
+    exact_nnz = (state.raw_counts if state.raw_counts is not None
+                 else np.diff(np.asarray(c.indptr.cpu().numpy(), np.int64)))
     if plan.feed_forward and causes:
         causes = {f"{k}+stale_feed": v for k, v in causes.items()}
     accuracy = obs_accuracy.measure_accuracy(plan, exact_nnz, causes)
@@ -387,7 +547,7 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
         stage_seconds=stage, bins=dict(plan.bins_describe),
         overflow_rows=n_overflow, nnz_out=total, plan_cache_hit=cache_hit,
         feed_forward=plan.feed_forward, executor=executor,
-        overlap_seconds=overlap_s,
+        overlap_seconds=overlap_s, raw_row_nnz=state.raw_counts,
         wave2_overlap_seconds=plan.wave2_overlap_seconds,
         wave2_overlapped=plan.wave2_overlapped,
         estimation_accuracy=accuracy, decision=plan.decision)

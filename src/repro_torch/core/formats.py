@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,17 @@ def structure_hash(c: "CSR") -> str:
         host(c.indices[: c.nnz]).astype(np.int32)).tobytes())
     h.update(repr(c.shape).encode())
     return h.hexdigest()
+
+
+def lru_bucket(store, key: str, factory: Callable, maxsize: int = 8):
+    """Fetch/create ``store[key]`` in an OrderedDict used as a small LRU
+    of per-key buckets (per-RHS sketch caches)."""
+    if key not in store:
+        store[key] = factory()
+    store.move_to_end(key)
+    while len(store) > maxsize:
+        store.popitem(last=False)
+    return store[key]
 
 
 def pow2_at_least(x: int, *, floor: int) -> int:

@@ -42,14 +42,10 @@ def _resolve_cache(cache: Union[bool, PlanCache, None]):
                     f"got {type(cache).__name__}")
 
 
-def _check_single_device(a: CSR, b: CSR, devices, analysis_devices,
-                         post=None) -> None:
+def _check_single_device(a: CSR, b: CSR, devices,
+                         analysis_devices) -> None:
     resolve_devices(devices)
     resolve_devices(analysis_devices)
-    if post is not None:
-        raise NotImplementedError(
-            "post= (fused MergePostOps) is ROADMAP queue 1, item 7; it is "
-            "not ported yet")
     if a.device != b.device:
         raise ValueError(f"A on {a.device} and B on {b.device}: both "
                          "operands must live on one device")
@@ -79,11 +75,15 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     sketches. ``executor``: ``"pipelined"`` (default), ``"threaded"`` or
     ``"serial"``, bit-identical. ``known_sizes``: exact per-row output nnz
     fed forward from a prior numeric pass (workflow ``"known"``).
-    ``devices``/``analysis_devices``/``post`` are not ported yet and raise.
+    ``post``: fused merge post-ops (``executor.MergePostOps``: mask filter,
+    value transform, prune, column-normalize) applied inside the merge;
+    plans are post-independent, so a cached plan serves masked and
+    unmasked calls alike (``repro_torch.graph.ops`` builds them).
+    ``devices``/``analysis_devices`` are not ported yet and raise.
     """
-    _check_single_device(a, b, devices, analysis_devices, post)
+    _check_single_device(a, b, devices, analysis_devices)
     if plan is not None:
-        return execute_plan(plan, a, b, executor=executor)
+        return execute_plan(plan, a, b, executor=executor, post=post)
     cache_obj = _resolve_cache(cache) if analysis is None else None
     if cache_obj is not None:
         t0 = time.perf_counter()
@@ -97,7 +97,7 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             stage = {"plan_lookup": lookup_s, "analysis": 0.0,
                      "prediction": 0.0, "binning": 0.0}
             return execute_plan(cached, a, b, stage=stage, cache_hit=True,
-                                executor=executor)
+                                executor=executor, post=post)
         base = build_plan(a, b, cfg, force_workflow=force_workflow,
                           assisted=assisted, hybrid=hybrid,
                           sketch_cache=sketch_cache, key=key,
@@ -105,12 +105,13 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         cache_obj.insert(key, base)
         stage = dict(base.build_seconds)
         stage["plan_lookup"] = lookup_s
-        return execute_plan(base, a, b, stage=stage, executor=executor)
+        return execute_plan(base, a, b, stage=stage, executor=executor,
+                            post=post)
     fresh = build_plan(a, b, cfg, force_workflow=force_workflow,
                        assisted=assisted, hybrid=hybrid, analysis=analysis,
                        sketch_cache=sketch_cache, known_sizes=known_sizes)
     return execute_plan(fresh, a, b, stage=fresh.build_seconds,
-                        executor=executor)
+                        executor=executor, post=post)
 
 
 def warm_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
@@ -146,10 +147,11 @@ def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
                       sketch_cache: Union[Dict, Sequence, None] = None,
                       devices=None, analysis_devices=None,
                       executor: str = "pipelined",
+                      post=None,
                       ) -> List[Tuple[CSR, OceanReport]]:
     """``[A_i @ B for A_i in a_list]`` against one B, sharing B's sketches
     across the stream. ``cache``/``sketch_cache`` also take one entry per
-    left-hand side."""
+    left-hand side; ``post`` applies to every product."""
     n = len(a_list)
     caches = (list(cache) if isinstance(cache, (list, tuple))
               else [cache] * n)
@@ -166,7 +168,7 @@ def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
                          assisted=assisted, hybrid=hybrid, cache=c,
                          sketch_cache=s, devices=devices,
                          analysis_devices=analysis_devices,
-                         executor=executor)
+                         executor=executor, post=post)
             for a, c, s in zip(a_list, caches, sketches)]
 
 

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+U = ctypes.c_uint
 
 # argtypes of every C entry point (pointers and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits)
@@ -38,6 +39,8 @@ SIGNATURES = {
     "ocean_dense_bin": (P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     "ocean_hash_bin": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     "ocean_hll_merge": (P, P, P, P, P, I, I, I, F, P),
+    "ocean_hll_sketch": (P, P, P, I, I, U, P),
+    "ocean_count_bin": (P, P, P, P, P, P, P, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

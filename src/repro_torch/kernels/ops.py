@@ -10,13 +10,14 @@ from __future__ import annotations
 import torch
 
 from ..core.formats import CSR, PAD_COL, pad_axis
-from .hll import hll_merge
-from .spgemm_dense import spgemm_dense_bin
+from .hll import hll_merge, hll_sketch
+from .spgemm_dense import spgemm_count_bin, spgemm_dense_bin
 from .spgemm_hash import extract_hash_rows, spgemm_hash_bin
 
 __all__ = ["prep_bin_structure", "gather_bin_values", "pad_b_flat",
            "extract_window_rows", "extract_hash_rows", "dense_bin_op",
-           "hash_bin_op", "merge_estimate_op"]
+           "hash_bin_op", "count_bin_op", "build_sketches_op",
+           "merge_estimate_op"]
 
 # B arrays are padded by this many slots (the reference's DMA chunk), so
 # the flat arrays the kernels read have the reference's shapes.
@@ -25,6 +26,14 @@ F_CHUNK = 128
 # launched in row chunks. A long row's window is the whole column range
 # (8 bytes per column), so a 2**20-column bin stays at 256 rows a launch.
 DENSE_OUT_BYTES = 2 << 30
+
+
+def build_sketches_op(b: CSR, m_regs: int, seed: int = 0) -> torch.Tensor:
+    """Per-row sketches of B: (b.m + 1, m_regs) int32, the last row the
+    all-zero sentinel that the merge treats as padding."""
+    regs = hll_sketch(b.indptr, b.indices, m_regs=m_regs, seed=seed)
+    return torch.cat([regs, torch.zeros((1, m_regs), dtype=torch.int32,
+                                        device=regs.device)])
 
 
 def merge_estimate_op(a: CSR, sketches_with_sentinel: torch.Tensor,
@@ -92,6 +101,18 @@ def hash_bin_op(a_rows, a_vals, a_starts, a_lens, b_cols_pad, b_vals_pad,
     return spgemm_hash_bin(a_rows, a_vals, a_starts, a_lens, b_cols_pad,
                            b_vals_pad, table=table, spill=spill,
                            f_chunk=f_chunk, tile=tile)
+
+
+def count_bin_op(a: CSR, b: CSR, rows, ell_width: int, row_lo, b_cols_pad,
+                 *, window: int) -> torch.Tensor:
+    """Exact output nnz of the given rows of A @ B, each of whose output
+    columns lies in ``[row_lo, row_lo + window)``: the bin's structure
+    (``ell_width`` >= the rows' A lengths) through the count-only pass.
+    ``row_lo`` is (R, 1) int32 on A's device. Returns (R,) int32."""
+    _, _, a_rows, a_starts, a_lens = prep_bin_structure(a, b, rows,
+                                                        ell_width)
+    return spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols_pad,
+                            window=window)[1]
 
 
 def prep_bin_structure(a: CSR, b: CSR, rows, ell_width: int):

@@ -206,7 +206,7 @@ def test_warm_plan_and_many(suites):
 
 def test_unported_options_raise(suites):
     a = suites[1]["uniform_small"]
-    for kw in ({"devices": 2}, {"analysis_devices": 2}, {"post": object()}):
+    for kw in ({"devices": 2}, {"analysis_devices": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             workflow.ocean_spgemm(a, a, **kw)
 
