@@ -13,10 +13,11 @@ Phases, each of which raises on failure:
 2. main path: ``repro_torch.core.workflow.ocean_spgemm(a, a)`` on a banded
    matrix (estimation workflow: ``hll_sketch`` + ``hll_merge`` + dense
    windows) and a power-law matrix (symbolic workflow: the count kernel on
-   windowed rows, hash bins, long-row dense tiles), each called cold (plan
-   built) and warm (plan-cache hit), with every kernel's launch count set
-   to 0 just before each matrix and read just after, and the kernels each
-   matrix's path must launch checked; C is checked against
+   windowed rows, hash bins, the long-row dense rung), each called cold
+   (plan built) and warm (plan-cache hit), with every kernel's launch count
+   set to 0 just before each matrix and read just after, and the kernels
+   each matrix's path must launch checked (the dense kernel once per dense
+   bin of the plan); C is checked against
    ``scipy.sparse``, and one ``torch.sparse`` product of the same matrix is
    timed as a yardstick; then one more warm call per matrix under
    torch.profiler gives the device's busy time and idle share;
@@ -31,7 +32,11 @@ Phases, each of which raises on failure:
    prune step from the same input, the labels against the scipy twin's);
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2 and phase-2c paths at the shapes those paths launch them
-   with, with times from CUDA events and each kernel's bound;
+   with, with times from CUDA events, each kernel's bound and, for the
+   dense bins, one ``torch.sparse`` product of the same rows; then the
+   dense kernel on edge cases the paths may not give it (rows past the
+   slab's cap, padding, a B row over the stage, a column range wider than
+   one shared-memory bitmap);
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
    against scipy, which also drives the ESC and upper-bound paths.
 
@@ -162,8 +167,8 @@ def library_product(a, runs: int):
 
 
 def reset_counts(kd, kh, kl) -> None:
-    kd.spgemm_dense_bin.window_launches = 0
-    kd.spgemm_dense_bin.longrow_launches = 0
+    kd.spgemm_dense_slab.window_launches = 0
+    kd.spgemm_dense_slab.longrow_launches = 0
     kd.spgemm_count_bin.launches = 0
     kh.spgemm_hash_bin.launches = 0
     kl.hll_merge.launches = 0
@@ -171,8 +176,8 @@ def reset_counts(kd, kh, kl) -> None:
 
 
 def read_counts(kd, kh, kl) -> dict:
-    return {"dense_window": kd.spgemm_dense_bin.window_launches,
-            "dense_longrow": kd.spgemm_dense_bin.longrow_launches,
+    return {"dense_window": kd.spgemm_dense_slab.window_launches,
+            "dense_longrow": kd.spgemm_dense_slab.longrow_launches,
             "hash": kh.spgemm_hash_bin.launches,
             "hll_merge": kl.hll_merge.launches,
             "hll_sketch": kl.hll_sketch.launches,
@@ -239,38 +244,84 @@ def collapse_labels(label: np.ndarray) -> np.ndarray:
     return label
 
 
-def longrow_edge_cases(kd, dev) -> None:
-    """The long-row rung on inputs the main path may not give it: a B row
-    with more products than the kernel stages at once, ELL padding between
-    live slots, a row of padding only, and a B row with a repeated column."""
+def check_slab(label, got, want) -> float:
+    """Slabs (cols, vals, nnz) of the kernel against its plain version:
+    cols and nnz equal, vals to 1e-5; returns the max abs difference."""
     import torch
-    rng = np.random.default_rng(0)
-    window, tiles = 2048, 4
-    width = window * tiles
-    rows = [rng.choice(width, 6000, replace=False), rng.choice(width, 10,
-                                                               replace=False),
-            np.array([5, 5, 7]), rng.choice(width, 300, replace=False)]
-    starts = np.cumsum([0] + [len(x) for x in rows])
-    b_cols = np.concatenate(rows + [np.full(128, -1)]).astype(np.int32)
+    torch.cuda.synchronize()
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{label}: nnz differs from plain")
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"{label}: columns differ from plain")
+    return close_enough(got[1], want[1])
+
+
+def ell_of(rng, b_rows, ell):
+    """ELL inputs over flat B rows ``b_rows`` (lists of columns; -1 in
+    ``ell`` is padding): (a_rows, a_vals, a_starts, a_lens, b_cols,
+    b_vals), B padded by 128 slots as the executor pads it."""
+    starts = np.cumsum([0] + [len(x) for x in b_rows])
+    b_cols = np.concatenate(b_rows + [np.full(128, -1)]).astype(np.int32)
     b_vals = rng.standard_normal(len(b_cols)).astype(np.float32)
-    ell = np.array([[0, -1, 1, 2, -1, 3, 0, -1],
-                    [-1] * 8,
-                    [3, 1, 2, 3, 1, 2, 3, 1]], np.int32)
+    ell = np.asarray(ell, np.int32)
     live = ell >= 0
     a_starts = np.where(live, starts[np.maximum(ell, 0)], 0).astype(np.int32)
     a_lens = np.where(live, np.diff(starts)[np.maximum(ell, 0)],
                       0).astype(np.int32)
     a_vals = np.where(live, rng.standard_normal(ell.shape), 0).astype(
         np.float32)
-    t = [torch.as_tensor(x, device=dev) for x in
-         (ell, a_vals, a_starts, a_lens, np.zeros((3, 1), np.int32), b_cols,
-          b_vals)]
-    acc, cnt = kd.spgemm_dense_bin(*t, window=window, col_tiles=tiles)
-    pacc, pcnt = kd.dense_bin_plain(*t, window=window, col_tiles=tiles)
-    if not torch.equal(cnt, pcnt):
-        raise AssertionError("long-row edge cases: counts differ from plain")
-    err = close_enough(acc, pacc)
-    log(f"dense_longrow edge cases: max_abs_err {err:.3g}")
+    return ell, a_vals, a_starts, a_lens, b_cols, b_vals
+
+
+def dense_edge_cases(kd, dev) -> None:
+    """The dense kernel on inputs the main path may not give it, each at a
+    cap below its rows' nnz (the slab keeps the first cap columns) and at
+    one above: ELL padding between live slots, a row of padding only, a B
+    row with a repeated column; windowed, a B row with more products than a
+    warp stages and offset windows; long-row, a B row with more products
+    than the block stages, and a column range wider than one shared-memory
+    bitmap (taken in segments)."""
+    import torch
+    rng = np.random.default_rng(0)
+    ell = [[0, -1, 1, 2, -1, 3, 0, -1], [-1] * 8, [3, 1, 2, 3, 1, 2, 3, 1]]
+
+    def run(label, b_rows, row_lo, window, tiles, caps):
+        ar, av, ast, aln, bc, bv = ell_of(rng, b_rows, ell)
+        t = [torch.as_tensor(x, device=dev) for x in
+             (ar, av, ast, aln, np.asarray(row_lo, np.int32).reshape(-1, 1),
+              bc, bv)]
+        for cap in caps:
+            kw = dict(window=window, col_tiles=tiles, cap=cap)
+            got = kd.spgemm_dense_slab(*t, **kw)
+            want = kd.dense_slab_plain(*t, **kw)
+            err = check_slab(f"{label} cap {cap}", got, want)
+            log(f"dense edge case {label} cap {cap}: nnz "
+                f"{want[2].tolist()} max_abs_err {err:.3g}")
+
+    w = 4096
+    lo = [100, 7, 3000]
+    run("windowed", [rng.choice(w, 600, replace=False) + 50,
+                     rng.choice(w, 10, replace=False) + 100,
+                     np.array([3100, 3100, 3102]),
+                     rng.choice(w, 300, replace=False) + 2900],
+        lo, w, 1, (100, w))
+    width = 2048 * 4
+    run("long-row", [rng.choice(width, 6000, replace=False),
+                     rng.choice(width, 10, replace=False),
+                     np.array([5, 5, 7]),
+                     rng.choice(width, 300, replace=False)],
+        [0, 0, 0], 2048, 4, (64, 4096))
+    # 2^21 columns: one shared-memory bitmap (227 KB, 10 bytes a 64-column
+    # word with its rank) holds fewer than 1.49 M, so this takes segments;
+    # B row 2 is every column of a run that holds the segment boundary at
+    # each cap tried here (near 1.11 M and 1.21 M columns)
+    tiles = 1024
+    width = 2048 * tiles
+    run("long-row wide", [rng.choice(width, 3000, replace=False),
+                          np.sort(rng.choice(width, 200, replace=False)),
+                          np.arange(1_100_000, 1_220_000),
+                          rng.choice(width, 300, replace=False)],
+        [0, 0, 0], 2048, tiles, (64, 4096))
 
 
 def profile_call(name, a, cache, workflow) -> None:
@@ -363,6 +414,7 @@ def main() -> int:
     results = {}
     caches = {}
     path_counts = {}
+    call_counts = {}
 
     def drive(name, a):
         cache = planner.PlanCache()
@@ -384,6 +436,7 @@ def main() -> int:
             spans = {}
             for ev in tracer.events():
                 spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
+            call_counts[name, call] = launched
             log_call(f"{name} {call}", rep, wall, launched,
                      torch.cuda.max_memory_allocated() / 2**30)
             log(f"  spans {json.dumps({k: round(v, 4) for k, v in spans.items()})}")
@@ -418,6 +471,17 @@ def main() -> int:
                                      f"its path: {missing}")
 
     require(need)
+    for name, a in mats:  # the dense kernel: one launch per dense bin
+        plan = plan_of(name, a)
+        want = {"dense_window": sum(not be.is_longrow for be in plan.dense),
+                "dense_longrow": sum(be.is_longrow for be in plan.dense)}
+        for call in ("cold", "warm"):
+            got = {k: call_counts[name, call][k] for k in want}
+            if got != want:
+                raise AssertionError(f"{name} {call}: dense launches {got}, "
+                                     f"dense bins of its plan {want}")
+        log(f"{name}: dense launches per call {json.dumps(want)}, one per "
+            "bin")
     log(f"powerlaw: count kernel launches (symbolic prediction of its "
         f"windowed rows) {path_counts['powerlaw']['count']}")
     wf = {name: outs[0][1].workflow for name, outs in results.items()}
@@ -630,37 +694,43 @@ def main() -> int:
     plan_l = plan_of(*mats[-1])
     a_band = mats[0][1]
 
-    def first_launch_rows(be):
-        """Rows of a bin's first launch, as ops.dense_bin_op chunks it."""
-        w = be.window * be.col_tiles
-        return slice(0, min(len(be.rows),
-                            max(1, ops.DENSE_OUT_BYTES // (8 * w))))
-
     def dense_case(label, a, be, key):
+        """The dense kernel on a whole bin, as the path launches it."""
         b_cols, b_vals = ops.pad_b_flat(a)
-        sl = first_launch_rows(be)
         a_vals = ops.gather_bin_values(a.values, be.pos, be.valid)
-        args_ = (be.a_rows[sl], a_vals[sl], be.a_starts[sl], be.a_lens[sl],
-                 be.row_lo[sl], b_cols, b_vals)
-        kw = dict(window=be.window, col_tiles=be.col_tiles)
-        acc, cnt = kd.spgemm_dense_bin(*args_, **kw)
-        pacc, pcnt = kd.dense_bin_plain(*args_, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(cnt, pcnt):
-            raise AssertionError(f"{label}: counts differ from plain")
-        err = close_enough(acc, pacc)
-        ms = time_cuda(lambda: kd.spgemm_dense_bin(*args_, **kw), KERNEL_RUNS)
-        plain_ms = time_cuda(lambda: kd.dense_bin_plain(*args_, **kw), 3)
-        r, e = be.a_rows[sl].shape
-        w = be.window * be.col_tiles
-        products = float(be.a_lens[sl].long().sum())
-        by = (ell_bytes(be.a_rows[sl]) + r * 4
-              + unique_b_bytes(be.a_rows[sl], be.a_lens[sl]) + r * w * 8)
+        args_ = (be.a_rows, a_vals, be.a_starts, be.a_lens, be.row_lo,
+                 b_cols, b_vals)
+        kw = dict(window=be.window, col_tiles=be.col_tiles, cap=be.cap)
+        got = kd.spgemm_dense_slab(*args_, **kw)
+        want = kd.dense_slab_plain(*args_, **kw)
+        err = check_slab(label, got, want)
+        nnz = int(got[2].long().sum())
+        over = int((got[2] > be.cap).sum())
+        del got, want
+        ms = time_cuda(lambda: kd.spgemm_dense_slab(*args_, **kw),
+                       KERNEL_RUNS)
+        plain_ms = time_cuda(lambda: kd.dense_slab_plain(*args_, **kw), 3)
+        # the library: one torch.sparse product of the bin's rows of A by B
+        sub = planner.gather_rows(a, be.rows)
+        ta = torch.sparse_csr_tensor(sub.indptr, sub.indices[: sub.nnz],
+                                     sub.values[: sub.nnz], size=sub.shape,
+                                     check_invariants=False)
+        tb = torch.sparse_csr_tensor(a.indptr, a.indices[: a.nnz],
+                                     a.values[: a.nnz], size=a.shape,
+                                     check_invariants=False)
+        lib_nnz = int((ta @ tb)._nnz())
+        lib_ms = time_cuda(lambda: ta @ tb, 3)
+        r, e = be.a_rows.shape
+        products = float(torch.where(be.a_rows >= 0, be.a_lens, 0)
+                         .long().sum())
+        by = (ell_bytes(be.a_rows) + r * 4
+              + unique_b_bytes(be.a_rows, be.a_lens) + r * be.cap * 8 + r * 4)
         b_ms, b_by = bound(by, 2 * products, F32_OPS_PER_S)
-        log(f"{label}: R {r} E {e} W {be.window}x{be.col_tiles} products "
-            f"{int(products)} max_abs_err {err:.3g} kernel {ms:.3f} ms plain "
-            f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}, "
-            f"{by / 1e9:.4f} GB)")
+        log(f"{label}: R {r} E {e} W {be.window}x{be.col_tiles} cap {be.cap}"
+            f" products {int(products)} nnz {nnz} (torch.sparse {lib_nnz}) "
+            f"rows over cap {over} max_abs_err {err:.3g} kernel {ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms torch.sparse {lib_ms:.3f} ms bound "
+            f"{b_ms:.3f} ms ({b_by}, {by / 1e9:.4f} GB)")
         kernels.append({
             "name": f"spgemm_dense_bin[{label.split('_')[-1]}]",
             "route": "cuda",
@@ -669,9 +739,11 @@ def main() -> int:
             "launches": counts[key], "launches_by_path": by_path[key],
             "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": lib_ms,
             "shape": {"R": r, "E": e, "window": be.window,
-                      "col_tiles": be.col_tiles}})
+                      "col_tiles": be.col_tiles, "cap": be.cap,
+                      "products": int(products), "nnz": nnz,
+                      "rows_over_cap": over, "library_nnz": lib_nnz}})
 
     windowed = [be for be in plan_b.dense if not be.is_longrow]
     be_w = max(windowed, key=lambda be: len(be.rows))
@@ -680,7 +752,7 @@ def main() -> int:
     be_l = max((be for be in plan_l.dense if be.is_longrow),
                key=lambda be: len(be.rows))
     dense_case("dense_longrow", a_long, be_l, "dense_longrow")
-    longrow_edge_cases(kd, dev)
+    dense_edge_cases(kd, dev)
 
     # hash: the largest hash bin of the power-law plan
     a_pl = mats[1][1]

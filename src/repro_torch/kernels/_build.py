@@ -36,7 +36,7 @@ U = ctypes.c_uint
 # argtypes of every C entry point (pointers and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "ocean_dense_bin": (P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    "ocean_dense_slab": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
     "ocean_hash_bin": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     "ocean_hll_merge": (P, P, P, P, P, I, I, I, F, P),
     "ocean_hll_sketch": (P, P, P, I, I, U, P),

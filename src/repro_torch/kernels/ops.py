@@ -2,16 +2,19 @@
 
 PyTorch port of ``repro.kernels.ops``. Which implementation runs is decided
 by the tensors' device alone: CUDA tensors go through the hand-written
-kernels, CPU tensors through their plain versions. The epilogues (window and
-table compaction) were XLA in the reference and are plain torch here.
+kernels, CPU tensors through their plain versions. The dense kernel writes
+compacted slabs itself; ``extract_window_rows``, the reference's XLA window
+compaction, is the plain version's epilogue. The hash tables' compaction is
+plain torch.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.formats import CSR, PAD_COL, pad_axis
+from ..core.formats import CSR, pad_axis
 from .hll import hll_merge, hll_sketch
-from .spgemm_dense import spgemm_count_bin, spgemm_dense_bin
+from .spgemm_dense import (extract_window_rows, spgemm_count_bin,
+                           spgemm_dense_slab)
 from .spgemm_hash import extract_hash_rows, spgemm_hash_bin
 
 __all__ = ["prep_bin_structure", "gather_bin_values", "pad_b_flat",
@@ -22,10 +25,6 @@ __all__ = ["prep_bin_structure", "gather_bin_values", "pad_b_flat",
 # B arrays are padded by this many slots (the reference's DMA chunk), so
 # the flat arrays the kernels read have the reference's shapes.
 F_CHUNK = 128
-# Upper bound on one dense launch's (acc, cnt) output; longer bins are
-# launched in row chunks. A long row's window is the whole column range
-# (8 bytes per column), so a 2**20-column bin stays at 256 rows a launch.
-DENSE_OUT_BYTES = 2 << 30
 
 
 def build_sketches_op(b: CSR, m_regs: int, seed: int = 0) -> torch.Tensor:
@@ -46,50 +45,18 @@ def merge_estimate_op(a: CSR, sketches_with_sentinel: torch.Tensor,
     return merged, est
 
 
-def extract_window_rows(acc, cnt, row_lo, *, cap: int):
-    """Compact dense windows into per-row slabs of width ``cap``.
-
-    Presence is ``cnt > 0`` (structural zeros kept). The window is already
-    in column order, so a prefix sum over presence gives each entry's slot.
-    Returns (cols (R, cap) int32 global indices padded with PAD_COL,
-    vals (R, cap), nnz (R,) int32). Rows with nnz > cap overflowed."""
-    r = acc.shape[0]
-    pres = cnt > 0
-    nnz = pres.sum(dim=1, dtype=torch.int32)
-    rank = torch.cumsum(pres, dim=1, dtype=torch.int32) - 1
-    ri, ci = (pres & (rank < cap)).nonzero(as_tuple=True)
-    dest = rank[ri, ci].long()
-    cols = torch.full((r, cap), PAD_COL, dtype=torch.int32, device=acc.device)
-    vals = torch.zeros((r, cap), dtype=acc.dtype, device=acc.device)
-    cols[ri, dest] = ci.int() + row_lo[ri, 0]
-    vals[ri, dest] = acc[ri, ci]
-    return cols, vals, nnz
-
-
 def dense_bin_op(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols_pad,
                  b_vals_pad, *, window: int, col_tiles: int = 1,
                  cap: int | None = None):
-    """Run one bin through the dense accumulator and compact it.
+    """Run one bin through the dense accumulator, compacted into slabs.
 
-    Returns (cols (R, cap), vals (R, cap), nnz (R,)). Rows are launched in
-    chunks of at most ``DENSE_OUT_BYTES`` of window output; every row's
-    result depends on that row alone, so chunking changes no value."""
-    w = window * col_tiles
-    cap = w if cap is None else cap
-    r = a_rows.shape[0]
-    step = max(1, DENSE_OUT_BYTES // (8 * w))
-    parts = []
-    for s in range(0, max(r, 1), step):
-        e = min(r, s + step)
-        acc, cnt = spgemm_dense_bin(
-            a_rows[s:e], a_vals[s:e], a_starts[s:e], a_lens[s:e],
-            row_lo[s:e], b_cols_pad, b_vals_pad, window=window,
-            col_tiles=col_tiles)
-        parts.append(extract_window_rows(acc, cnt, row_lo[s:e], cap=cap))
-        del acc, cnt
-    if len(parts) == 1:
-        return parts[0]
-    return tuple(torch.cat(xs) for xs in zip(*parts))
+    Returns (cols (R, cap), vals (R, cap), nnz (R,)), as the reference's
+    ``dense_bin_op``; ``cap`` defaults to the window's width. One launch
+    per bin: the kernel keeps each row's window on chip."""
+    cap = window * col_tiles if cap is None else cap
+    return spgemm_dense_slab(a_rows, a_vals, a_starts, a_lens, row_lo,
+                             b_cols_pad, b_vals_pad, window=window,
+                             col_tiles=col_tiles, cap=cap)
 
 
 def hash_bin_op(a_rows, a_vals, a_starts, a_lens, b_cols_pad, b_vals_pad,

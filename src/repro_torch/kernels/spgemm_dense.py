@@ -1,11 +1,15 @@
 """Dense-window accumulator, and its count-only pass, for one bin of rows.
 
-:func:`spgemm_dense_bin` is the port of the Pallas ``spgemm_dense_bin``
-(``repro/kernels/spgemm_dense.py:178``): for CUDA tensors it launches the
-hand-written kernel in ``csrc/spgemm_dense.cu``, for CPU tensors it runs
-:func:`dense_bin_plain`, a PyTorch port of the reference's XLA twin
-``_dense_bin_xla``. Both return ``(acc, cnt)``, each (R, col_tiles*window)
-f32; presence is ``cnt > 0``.
+:func:`spgemm_dense_slab` is the port of the reference's ``dense_bin_op``
+(``repro/kernels/ops.py:162``): the Pallas ``spgemm_dense_bin``
+(``repro/kernels/spgemm_dense.py:178``) followed by its epilogue
+``extract_window_rows``. For CUDA tensors it launches the hand-written kernel
+in ``csrc/spgemm_dense.cu``, which keeps each row's window in shared memory
+and writes only the row's compacted slab; for CPU tensors it runs
+:func:`dense_slab_plain`, :func:`dense_bin_plain` (a PyTorch port of the
+reference's XLA twin ``_dense_bin_xla``, returning the (R, col_tiles*window)
+``(acc, cnt)`` windows) followed by :func:`extract_window_rows`. Both return
+``(cols (R, cap) int32, vals (R, cap) f32, nnz (R,) int32)``.
 
 :func:`spgemm_count_bin` is the port of the Pallas ``spgemm_count_bin``
 (``repro/kernels/spgemm_dense.py:148``), the same windows without values:
@@ -18,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.esc import segment_sum
+from ..core.formats import PAD_COL
 from . import _build
 
 _INT_INPUTS = ("a_rows", "a_starts", "a_lens", "row_lo", "b_cols")
@@ -26,6 +32,11 @@ _INT_INPUTS = ("a_rows", "a_starts", "a_lens", "row_lo", "b_cols")
 # The plain versions enumerate every product of a row chunk at once; rows
 # are taken in chunks of about this many products to bound their memory.
 PLAIN_CHUNK_PRODUCTS = 1 << 26
+# :func:`dense_slab_plain` builds (acc, cnt) windows for at most this many
+# bytes of rows at a time (a long row's window is 8 bytes a column).
+PLAIN_WINDOW_BYTES = 2 << 30
+# Largest slab width the CUDA kernel takes (its ranks are uint16).
+MAX_CAP = 65535
 
 
 def enumerate_products(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals):
@@ -61,8 +72,11 @@ def row_chunks(a_rows, a_lens):
 
 def dense_bin_plain(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols, b_vals,
                     *, window: int, col_tiles: int = 1):
-    """Plain PyTorch version: scatter-add of every product into its row's
-    window, in enumeration order."""
+    """Plain PyTorch version: every product summed into its row's window
+    slot in enumeration order. The products are stably sorted by slot and
+    each slot summed in order by one thread (``esc.segment_sum``), so the
+    sums keep enumeration order on a GPU too, where an ``index_add_``
+    would add them with atomics in no fixed order."""
     r = a_rows.shape[0]
     w = window * col_tiles
     dev = b_vals.device
@@ -74,10 +88,10 @@ def dense_bin_plain(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols, b_vals,
             b_vals)
         local = col - row_lo[s:e][row, 0].long()
         ok = (local >= 0) & (local < w) & (col >= 0)
-        flat = row[ok] * w + local[ok]
-        acc[s:e].view(-1).index_add_(0, flat, val[ok])
-        cnt[s:e].view(-1).index_add_(
-            0, flat, torch.ones_like(flat, dtype=torch.float32))
+        flat, perm = torch.sort(row[ok] * w + local[ok], stable=True)
+        slot, counts = torch.unique_consecutive(flat, return_counts=True)
+        acc[s:e].view(-1)[slot] = segment_sum(val[ok][perm], counts)
+        cnt[s:e].view(-1)[slot] = counts.to(torch.float32)
     return acc, cnt
 
 
@@ -132,46 +146,95 @@ def _check_window(r: int, window: int, col_tiles: int) -> None:
         raise ValueError(f"{r} rows exceed the grid")
 
 
-def spgemm_dense_bin(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols, b_vals,
-                     *, window: int, col_tiles: int = 1):
-    """Dense-window accumulation of one bin.
+def _check_cap(cap: int) -> None:
+    if not 0 < cap <= MAX_CAP:
+        raise ValueError(f"cap {cap} must be in [1, {MAX_CAP}]")
+
+
+def extract_window_rows(acc, cnt, row_lo, *, cap: int):
+    """Compact dense windows into per-row slabs of width ``cap``.
+
+    Presence is ``cnt > 0`` (structural zeros kept). The window is already
+    in column order, so a prefix sum over presence gives each entry's slot.
+    Returns (cols (R, cap) int32 global indices padded with PAD_COL,
+    vals (R, cap), nnz (R,) int32). Rows with nnz > cap overflowed."""
+    r = acc.shape[0]
+    pres = cnt > 0
+    nnz = pres.sum(dim=1, dtype=torch.int32)
+    rank = torch.cumsum(pres, dim=1, dtype=torch.int32) - 1
+    ri, ci = (pres & (rank < cap)).nonzero(as_tuple=True)
+    dest = rank[ri, ci].long()
+    cols = torch.full((r, cap), PAD_COL, dtype=torch.int32, device=acc.device)
+    vals = torch.zeros((r, cap), dtype=acc.dtype, device=acc.device)
+    cols[ri, dest] = ci.int() + row_lo[ri, 0]
+    vals[ri, dest] = acc[ri, ci]
+    return cols, vals, nnz
+
+
+def dense_slab_plain(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols,
+                     b_vals, *, window: int, col_tiles: int = 1, cap: int):
+    """Plain PyTorch version of :func:`spgemm_dense_slab`: the windows of
+    :func:`dense_bin_plain` compacted by :func:`extract_window_rows`, rows
+    taken in chunks of at most ``PLAIN_WINDOW_BYTES`` of window (each row's
+    result depends on that row alone)."""
+    r = a_rows.shape[0]
+    step = max(1, PLAIN_WINDOW_BYTES // (8 * window * col_tiles))
+    parts = []
+    for s in range(0, max(r, 1), step):
+        e = min(r, s + step)
+        acc, cnt = dense_bin_plain(
+            a_rows[s:e], a_vals[s:e], a_starts[s:e], a_lens[s:e],
+            row_lo[s:e], b_cols, b_vals, window=window, col_tiles=col_tiles)
+        parts.append(extract_window_rows(acc, cnt, row_lo[s:e], cap=cap))
+        del acc, cnt
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(xs) for xs in zip(*parts))
+
+
+def spgemm_dense_slab(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols,
+                      b_vals, *, window: int, col_tiles: int = 1, cap: int):
+    """Dense-window accumulation of one bin, compacted into slabs.
 
     a_rows/a_starts/a_lens: (R, E) int32 — B-row ids (pad -1), their
     starts and lengths in the flat B arrays (pad 0); a_vals (R, E) f32;
     row_lo (R, 1) int32 window base per row; b_cols/b_vals flat B arrays.
-    Returns (acc, cnt), each (R, col_tiles*window) f32.
+    Returns (cols (R, cap) int32 global column ids in column order padded
+    with PAD_COL, vals (R, cap) f32, nnz (R,) int32 each row's number of
+    present columns, which exceeds ``cap`` when the row overflowed; the slab
+    then holds its first ``cap`` columns).
     """
     if a_rows.device.type == "cpu":
-        return dense_bin_plain(a_rows, a_vals, a_starts, a_lens, row_lo,
-                               b_cols, b_vals, window=window,
-                               col_tiles=col_tiles)
+        return dense_slab_plain(a_rows, a_vals, a_starts, a_lens, row_lo,
+                                b_cols, b_vals, window=window,
+                                col_tiles=col_tiles, cap=cap)
     r, e = a_rows.shape
     _check_inputs(dict(a_rows=a_rows, a_vals=a_vals, a_starts=a_starts,
                        a_lens=a_lens, row_lo=row_lo, b_cols=b_cols,
                        b_vals=b_vals), r, e)
     _check_window(r, window, col_tiles)
-    if col_tiles > 1 and window % 4:
-        raise ValueError(f"long-row window {window} must be a multiple of 4")
-    w = window * col_tiles
-    acc = torch.empty((r, w), dtype=torch.float32, device=a_rows.device)
-    cnt = torch.empty((r, w), dtype=torch.float32, device=a_rows.device)
+    _check_cap(cap)
+    dev = a_rows.device
+    cols = torch.empty((r, cap), dtype=torch.int32, device=dev)
+    vals = torch.empty((r, cap), dtype=torch.float32, device=dev)
+    nnz = torch.empty(r, dtype=torch.int32, device=dev)
     if r == 0:
-        return acc, cnt
+        return cols, vals, nnz
     _build.launch(
-        "ocean_dense_bin", a_rows.device, a_rows.data_ptr(),
-        a_vals.data_ptr(), a_starts.data_ptr(), a_lens.data_ptr(),
-        row_lo.data_ptr(), b_cols.data_ptr(), b_vals.data_ptr(),
-        acc.data_ptr(), cnt.data_ptr(), r, e, window, col_tiles)
+        "ocean_dense_slab", dev, a_rows.data_ptr(), a_vals.data_ptr(),
+        a_starts.data_ptr(), a_lens.data_ptr(), row_lo.data_ptr(),
+        b_cols.data_ptr(), b_vals.data_ptr(), cols.data_ptr(),
+        vals.data_ptr(), nnz.data_ptr(), r, e, window, col_tiles, cap)
     if col_tiles > 1:
-        spgemm_dense_bin.longrow_launches += 1
+        spgemm_dense_slab.longrow_launches += 1
     else:
-        spgemm_dense_bin.window_launches += 1
-    return acc, cnt
+        spgemm_dense_slab.window_launches += 1
+    return cols, vals, nnz
 
 
 # launch counts of the CUDA kernel, split by rung (windowed / long-row)
-spgemm_dense_bin.window_launches = 0
-spgemm_dense_bin.longrow_launches = 0
+spgemm_dense_slab.window_launches = 0
+spgemm_dense_slab.longrow_launches = 0
 
 
 def spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols, *,
@@ -179,7 +242,7 @@ def spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols, *,
                      want_counts: bool = False):
     """Count-only (symbolic) pass over one bin.
 
-    Inputs as :func:`spgemm_dense_bin` without the values. Returns
+    Inputs as :func:`spgemm_dense_slab` without the values. Returns
     ``(counts, row_nnz)``: ``counts`` (R, col_tiles*window) f32 product
     counts per window slot when ``want_counts`` (else None), ``row_nnz``
     (R,) int32 the number of slots above 0 — the row's exact output nnz

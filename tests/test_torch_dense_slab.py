@@ -1,0 +1,146 @@
+"""The dense accumulator's slab wrapper vs the JAX reference's ``dense_bin_op``.
+
+``repro_torch.kernels.spgemm_dense.spgemm_dense_slab`` computes one dense
+bin straight into compacted slabs ``(cols, vals, nnz)``: on the card a
+hand-written kernel (``csrc/spgemm_dense.cu``, held to its plain version by
+``chip_smoke.py``), for CPU tensors its plain version ``dense_slab_plain``.
+Here the plain version is held to the reference's ``dense_bin_op``, which is
+the reference's dense kernel followed by ``extract_window_rows``, run both
+through its XLA twin and through the Pallas kernel in interpret mode
+(``REPRO_CPU_NUMERIC=pallas``, the reference's own switch), on the same
+seeded numpy bins. ``cols``/``nnz`` must match exactly; ``vals`` to rtol
+1e-5 / atol 1e-6 (both sum each column in product-enumeration order, so only
+the last ulp of f32 products may differ).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import formats as rformats  # noqa: E402
+from repro.kernels import ops as rops  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import spgemm_dense as kdense  # noqa: E402
+
+FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.array(x)) for x in xs]
+
+
+def _slab_bin(seed, r, e, n, *, window, offset):
+    """An ELL bin over a random B with rows that exercise the slab's edges:
+    row 0 is padding only, row 1 has padding between live slots, and the
+    rest have a random number of live slots (padding at the end)."""
+    rng = np.random.default_rng(seed)
+    nb = 40
+    b = rformats.random_uniform_csr(seed, nb, n, 12.0)
+    b_indptr = np.asarray(b.indptr)
+    a_rows = rng.integers(0, nb, (r, e)).astype(np.int32)
+    a_vals = rng.standard_normal((r, e)).astype(np.float32)
+    a_rows[0] = -1
+    a_rows[1, 1::3] = -1
+    for i in range(2, r):
+        a_rows[i, rng.integers(1, e + 1):] = -1
+    a_vals[a_rows < 0] = 0
+    k = np.maximum(a_rows, 0)
+    a_starts = np.where(a_rows >= 0, b_indptr[k], 0).astype(np.int32)
+    a_lens = np.where(a_rows >= 0, b_indptr[k + 1] - b_indptr[k],
+                      0).astype(np.int32)
+    row_lo = (rng.integers(0, max(n - window, 1), (r, 1)) if offset
+              else np.zeros((r, 1))).astype(np.int32)
+    b_cols, b_vals = (np.asarray(x) for x in rops.pad_b_flat(b))
+    return a_rows, a_vals, a_starts, a_lens, row_lo, b_cols, b_vals
+
+
+# (window, col_tiles, cap, offset): windowed and long-row bins; caps below
+# the rows' nnz (overflowing rows keep their first cap columns), at the
+# window's width, and above it (the slab padded past the window)
+CASES = [(256, 1, 256, False), (512, 1, 32, True), (128, 1, 8, False),
+         (64, 1, 128, True), (128, 2, 64, False), (128, 3, 16, False)]
+
+
+@pytest.mark.parametrize("numeric", ["xla", "pallas"])
+@pytest.mark.parametrize("window,tiles,cap,offset", CASES)
+def test_slab_plain_matches_reference_dense_bin_op(monkeypatch, numeric,
+                                                   window, tiles, cap,
+                                                   offset):
+    if numeric == "pallas":
+        monkeypatch.setenv("REPRO_CPU_NUMERIC", "pallas")
+    else:
+        monkeypatch.delenv("REPRO_CPU_NUMERIC", raising=False)
+    r, e = 8, 12
+    n = window * tiles - 8 if tiles > 1 else 2 * window
+    args = _slab_bin(window + cap + tiles, r, e, n, window=window,
+                     offset=offset)
+    want = [np.asarray(x) for x in rops.dense_bin_op(
+        *[jnp.asarray(x) for x in args], window=window, col_tiles=tiles,
+        cap=cap)]
+    got = [x.numpy() for x in kdense.dense_slab_plain(
+        *_t(*args), window=window, col_tiles=tiles, cap=cap)]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **FLOAT_TOL)
+    assert got[0].shape == (r, cap) and got[0].dtype == np.int32
+    assert got[2][0] == 0 and (got[0][0] == kdense.PAD_COL).all()
+    assert got[2][1] > 0  # live slots past the padding are summed
+    if cap < window * tiles // 4:
+        assert (got[2] > cap).any()  # an overflowing row is covered
+
+
+@pytest.mark.parametrize("window,tiles,cap", [(256, 1, 64), (128, 3, 32)])
+def test_slab_wrapper_on_cpu_runs_plain_and_launches_nothing(window, tiles,
+                                                             cap):
+    args = _t(*_slab_bin(3, 6, 8, window * tiles - 8, window=window,
+                         offset=False))
+    before = (kdense.spgemm_dense_slab.window_launches,
+              kdense.spgemm_dense_slab.longrow_launches)
+    got = kdense.spgemm_dense_slab(*args, window=window, col_tiles=tiles,
+                                   cap=cap)
+    want = ops.extract_window_rows(
+        *kdense.dense_bin_plain(*args, window=window, col_tiles=tiles),
+        args[4], cap=cap)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert before == (kdense.spgemm_dense_slab.window_launches,
+                      kdense.spgemm_dense_slab.longrow_launches)
+
+
+@pytest.mark.parametrize("window,tiles,cap", [(256, 1, 32), (128, 2, 128)])
+def test_dense_bin_op_without_row_chunks_equals_chunked(window, tiles, cap):
+    """One call per bin gives what launching the bin in row chunks and
+    compacting each chunk's windows gave."""
+    args = _t(*_slab_bin(5, 10, 8, window * tiles - 8, window=window,
+                         offset=tiles == 1))
+    got = ops.dense_bin_op(*args, window=window, col_tiles=tiles, cap=cap)
+    parts = []
+    for s in range(0, 10, 3):
+        chunk = [x[s:s + 3] for x in args[:5]] + args[5:]
+        parts.append(ops.extract_window_rows(
+            *kdense.dense_bin_plain(*chunk, window=window, col_tiles=tiles),
+            chunk[4], cap=cap))
+    for x, y in zip(got, (torch.cat(xs) for xs in zip(*parts))):
+        assert torch.equal(x, y)
+    # cap defaults to the window's width, as in the reference
+    whole = ops.dense_bin_op(*args, window=window, col_tiles=tiles)
+    assert whole[0].shape == (10, window * tiles)
+
+
+def test_slab_plain_window_chunks_change_nothing(monkeypatch):
+    args = _t(*_slab_bin(7, 12, 8, 500, window=512, offset=False))
+    whole = kdense.dense_slab_plain(*args, window=512, cap=64)
+    monkeypatch.setattr(kdense, "PLAIN_WINDOW_BYTES", 3 * 8 * 512)
+    chunked = kdense.dense_slab_plain(*args, window=512, cap=64)
+    for x, y in zip(whole, chunked):
+        assert torch.equal(x, y)
+
+
+def test_slab_checks_cap():
+    kdense._check_cap(1)
+    kdense._check_cap(4096)
+    for bad in (0, kdense.MAX_CAP + 1):
+        with pytest.raises(ValueError, match="cap"):
+            kdense._check_cap(bad)

@@ -78,14 +78,18 @@ def test_dense_plain_matches_xla_twin_and_pallas(r, e, w, tiles, offset):
         np.testing.assert_array_equal(cnt.numpy(), np.asarray(ref_cnt))
         np.testing.assert_allclose(acc.numpy(), np.asarray(ref_acc),
                                    **FLOAT_TOL)
-    # the wrapper takes the plain version for CPU tensors, launching nothing
-    before = (kdense.spgemm_dense_bin.window_launches,
-              kdense.spgemm_dense_bin.longrow_launches)
-    acc2, cnt2 = kdense.spgemm_dense_bin(*_t(*args), window=w,
-                                         col_tiles=tiles)
-    assert torch.equal(acc2, acc) and torch.equal(cnt2, cnt)
-    assert before == (kdense.spgemm_dense_bin.window_launches,
-                      kdense.spgemm_dense_bin.longrow_launches)
+    # the slab wrapper takes the plain version for CPU tensors, launching
+    # nothing: the windows compacted by extract_window_rows
+    before = (kdense.spgemm_dense_slab.window_launches,
+              kdense.spgemm_dense_slab.longrow_launches)
+    slab = kdense.spgemm_dense_slab(*_t(*args), window=w, col_tiles=tiles,
+                                    cap=w * tiles)
+    want = ops.extract_window_rows(acc, cnt, torch.from_numpy(row_lo),
+                                   cap=w * tiles)
+    for x, y in zip(slab, want):
+        assert torch.equal(x, y)
+    assert before == (kdense.spgemm_dense_slab.window_launches,
+                      kdense.spgemm_dense_slab.longrow_launches)
 
 
 def test_dense_plain_row_chunks_change_nothing(monkeypatch):
