@@ -32,11 +32,14 @@ Phases, each of which raises on failure:
    prune step from the same input, the labels against the scipy twin's);
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2 and phase-2c paths at the shapes those paths launch them
-   with, with times from CUDA events, each kernel's bound and, for the
-   dense bins, one ``torch.sparse`` product of the same rows; then the
-   dense kernel on edge cases the paths may not give it (rows past the
-   slab's cap, padding, a B row over the stage, a column range wider than
-   one shared-memory bitmap);
+   with (the hash kernel on every hash bin of the power-law plan and the
+   triangle plan's widest), with times from CUDA events, each kernel's
+   bound and, for the dense and hash bins, one ``torch.sparse`` product of
+   the same rows; then the dense and hash kernels on edge cases the paths
+   may not give them (dense: rows past the slab's cap, padding, a B row
+   over the stage, a column range wider than one shared-memory bitmap;
+   hash: rows that spill or overflow both tables, padding, repeated
+   columns, t2048 rows at and past 3,072 columns);
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
    against scipy, which also drives the ESC and upper-bound paths.
 
@@ -184,6 +187,17 @@ def read_counts(kd, kh, kl) -> dict:
             "count": kd.spgemm_count_bin.launches}
 
 
+def tuned_load_factors(tuning, dev) -> dict:
+    """The load factor the hash tuner chose for each rung it has timed in
+    this process (rungs not timed are left out)."""
+    out = {}
+    for rung in [32 * 2 ** k for k in range(8)]:
+        hit = tuning.DEFAULT_TUNING_CACHE.lookup(tuning.tuning_key(rung, dev))
+        if hit is not None:
+            out[rung] = hit.load_factor
+    return out
+
+
 def log_call(label, rep, wall, launched, peak_gib=None) -> None:
     """One multiply's report, as phases 2 and 2c print it (``wall`` None:
     a step of a chain, whose stages are printed)."""
@@ -256,6 +270,38 @@ def check_slab(label, got, want) -> float:
     return close_enough(got[1], want[1])
 
 
+def check_hash_slab(label, got, want, width):
+    """Hash slabs of the kernel against its plain version: overflow flags
+    equal; nnz and cols equal on rows that fit; vals there to 1e-5.
+    Returns (max abs difference, overflow rows)."""
+    import torch
+    torch.cuda.synchronize()
+    fits = want[2] <= width
+    if not torch.equal(got[2] > width, ~fits):
+        raise AssertionError(f"{label}: overflow flags differ from plain")
+    if not torch.equal(got[2][fits], want[2][fits]):
+        raise AssertionError(f"{label}: row nnz differs from plain")
+    if not torch.equal(got[0][fits], want[0][fits]):
+        raise AssertionError(f"{label}: columns differ from plain")
+    return close_enough(got[1][fits], want[1][fits]), int((~fits).sum())
+
+
+def library_rows(a, rows):
+    """Median ms of one ``torch.sparse`` CSR @ CSR call of A's ``rows`` by
+    A (cuSPARSE), the library's time for a bin's function, and its nnz."""
+    import torch
+    from repro_torch.core import planner
+    sub = planner.gather_rows(a, rows)
+    ta = torch.sparse_csr_tensor(sub.indptr, sub.indices[: sub.nnz],
+                                 sub.values[: sub.nnz], size=sub.shape,
+                                 check_invariants=False)
+    tb = torch.sparse_csr_tensor(a.indptr, a.indices[: a.nnz],
+                                 a.values[: a.nnz], size=a.shape,
+                                 check_invariants=False)
+    lib_nnz = int((ta @ tb)._nnz())
+    return time_cuda(lambda: ta @ tb, 3), lib_nnz
+
+
 def ell_of(rng, b_rows, ell):
     """ELL inputs over flat B rows ``b_rows`` (lists of columns; -1 in
     ``ell`` is padding): (a_rows, a_vals, a_starts, a_lens, b_cols,
@@ -324,6 +370,41 @@ def dense_edge_cases(kd, dev) -> None:
         [0, 0, 0], 2048, tiles, (64, 4096))
 
 
+def hash_edge_cases(kh, dev) -> None:
+    """The hash kernel on inputs the main path may not give it: rows that
+    spill, rows that overflow both tables, empty rows, ELL padding between
+    live slots, a B row holding a column twice; and t2048 rows at 3,000,
+    3,072 (both tables exactly full) and 3,073 distinct columns."""
+    import torch
+    from repro_torch.core.binning import hash_spill_of
+    rng = np.random.default_rng(1)
+
+    def run(label, b_rows, ell, table):
+        t = [torch.as_tensor(x, device=dev) for x in ell_of(rng, b_rows, ell)]
+        spill = hash_spill_of(table)
+        want = kh.hash_bin_plain(*t, table=table, spill=spill)
+        got = kh.hash_slab(*t, table=table, spill=spill)
+        err, over = check_hash_slab(label, got, want, table + spill)
+        log(f"hash edge case {label} t{table}: nnz {want[2].tolist()} "
+            f"overflow rows {over} max_abs_err {err:.3g}")
+
+    pad = -1
+    run("spill, overflow, padding, repeats",
+        [rng.choice(5000, 12, replace=False) for _ in range(5)]
+        + [np.array([7, 9, 7, 11, 9, 7])],
+        [[0, 1, 2, pad, 3, pad], [0, 1, 2, 3, 4, pad], [pad] * 6,
+         [0, pad, 1, pad, pad, 2],
+         [5, pad, 5, 0, pad, pad], [pad, 4, pad, pad, pad, 5],
+         [0, 1, 2, 3, 4, 5]], 32)
+    wide = rng.choice(1 << 20, 3073, replace=False)
+    run("near full", [wide[:1000], wide[1000:2000], wide[2000:3000],
+                      wide[3000:3072], wide[3072:]],
+        [[0, 1, 2, pad, pad], [0, 1, 2, 3, pad], [3, 2, pad, 1, 0],
+         [0, 1, 2, 3, 4], [4, 3, 2, 1, 0]], 2048)
+    log("hash edge cases: rows of 3,000 / 3,072 / 3,073 distinct columns at "
+        "t2048 (the last overflows)")
+
+
 def profile_call(name, a, cache, workflow) -> None:
     """Device busy share of one warm ``ocean_spgemm`` call, and the device
     activities (kernels, copies) that took the most time, from
@@ -375,7 +456,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(REPO, "src"))
     import scipy.sparse as sp
     from repro_torch import graph
-    from repro_torch.core import analysis, formats, planner, workflow
+    from repro_torch.core import analysis, formats, planner, tuning, workflow
     from repro_torch.core import hll as chll
     from repro_torch.core.analysis import OceanConfig
     from repro_torch.kernels import _build, ops
@@ -484,6 +565,12 @@ def main() -> int:
             "bin")
     log(f"powerlaw: count kernel launches (symbolic prediction of its "
         f"windowed rows) {path_counts['powerlaw']['count']}")
+    for name, a in mats:
+        log(f"{name}: hash bins (table: rows) " + json.dumps(
+            {hb.table: len(hb.rows) for hb in plan_of(name, a).hash}))
+    log("tuned hash load factor by rung (timed at this process's first cold "
+        f"plan; the reference rung {tuning.REFERENCE_RUNG} sizes the tables): "
+        + json.dumps(tuned_load_factors(tuning, dev)))
     wf = {name: outs[0][1].workflow for name, outs in results.items()}
     if wf["banded"] != "estimation":
         raise AssertionError(f"banded took {wf['banded']}, not estimation")
@@ -711,15 +798,7 @@ def main() -> int:
                        KERNEL_RUNS)
         plain_ms = time_cuda(lambda: kd.dense_slab_plain(*args_, **kw), 3)
         # the library: one torch.sparse product of the bin's rows of A by B
-        sub = planner.gather_rows(a, be.rows)
-        ta = torch.sparse_csr_tensor(sub.indptr, sub.indices[: sub.nnz],
-                                     sub.values[: sub.nnz], size=sub.shape,
-                                     check_invariants=False)
-        tb = torch.sparse_csr_tensor(a.indptr, a.indices[: a.nnz],
-                                     a.values[: a.nnz], size=a.shape,
-                                     check_invariants=False)
-        lib_nnz = int((ta @ tb)._nnz())
-        lib_ms = time_cuda(lambda: ta @ tb, 3)
+        lib_ms, lib_nnz = library_rows(a, be.rows)
         r, e = be.a_rows.shape
         products = float(torch.where(be.a_rows >= 0, be.a_lens, 0)
                          .long().sum())
@@ -754,49 +833,71 @@ def main() -> int:
     dense_case("dense_longrow", a_long, be_l, "dense_longrow")
     dense_edge_cases(kd, dev)
 
-    # hash: the largest hash bin of the power-law plan
+    # hash: every hash bin of the power-law plan, the triangle plan's
+    # widest, then edge cases; the record is the largest bin by rows
+    def hash_case(label, a, hb):
+        """The hash kernel on a whole bin, as the path launches it."""
+        b_cols, b_vals = ops.pad_b_flat(a)
+        a_vals = ops.gather_bin_values(a.values, hb.pos, hb.valid)
+        args_ = (hb.a_rows, a_vals, hb.a_starts, hb.a_lens, b_cols, b_vals)
+        kw = dict(table=hb.table, spill=hb.spill)
+        got = kh.spgemm_hash_bin(*args_, **kw)
+        want = kh.hash_bin_plain(*args_, **kw)
+        err, over = check_hash_slab(label, got, want, hb.table + hb.spill)
+        nnz = int(want[2].long().sum())
+        del got, want
+        ms = time_cuda(lambda: kh.spgemm_hash_bin(*args_, **kw), KERNEL_RUNS)
+        plain_ms = time_cuda(lambda: kh.hash_bin_plain(*args_, **kw), 3)
+        lib_ms, lib_nnz = library_rows(a, hb.rows)
+        if lib_nnz != nnz:
+            raise AssertionError(f"{label}: torch.sparse has {lib_nnz} "
+                                 f"entries, the plain version {nnz}")
+        r, e = hb.a_rows.shape
+        width = hb.table + hb.spill
+        products = float(hb.a_lens.long().sum())
+        by = (ell_bytes(hb.a_rows) + unique_b_bytes(hb.a_rows, hb.a_lens)
+              + r * width * 8 + r * 4)
+        b_ms, b_by = bound(by, 4 * products, INT32_OPS_PER_S)
+        lanes, rows, _ = kh.launch_shape_on(torch.cuda.current_device(),
+                                            hb.table, hb.spill)
+        log(f"{label}: R {r} E {e} table {hb.table}+{hb.spill} products "
+            f"{int(products)} nnz {nnz} overflow rows {over} lanes a row "
+            f"{lanes} rows a block {rows} max_abs_err "
+            f"{err:.3g} kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"torch.sparse {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}, "
+            f"{by / 1e9:.4f} GB)")
+        return {"bin": label, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms,
+                "shape": {"R": r, "E": e, "table": hb.table,
+                          "spill": hb.spill, "products": int(products),
+                          "nnz": nnz, "overflow_rows": over,
+                          "lanes_a_row": lanes, "rows_a_block": rows}}
+
     a_pl = mats[1][1]
-    hb = max(plan_p.hash, key=lambda h: len(h.rows))
-    b_cols, b_vals = ops.pad_b_flat(a_pl)
-    a_vals = ops.gather_bin_values(a_pl.values, hb.pos, hb.valid)
-    hargs = (hb.a_rows, a_vals, hb.a_starts, hb.a_lens, b_cols, b_vals)
-    hkw = dict(table=hb.table, spill=hb.spill)
-    cols, vals, nnz = kh.spgemm_hash_bin(*hargs, **hkw)
-    pcols, pvals, pnnz = kh.hash_bin_plain(*hargs, **hkw)
-    torch.cuda.synchronize()
-    width = hb.table + hb.spill
-    fits = pnnz <= width
-    if not torch.equal(nnz > width, pnnz > width):
-        raise AssertionError("hash: overflow flags differ from plain")
-    if not torch.equal(nnz[fits], pnnz[fits]):
-        raise AssertionError("hash: row nnz differs from plain")
-    if not torch.equal(cols[fits], pcols[fits]):
-        raise AssertionError("hash: columns differ from plain")
-    err = close_enough(vals[fits], pvals[fits])
-    # like for like: the wrapper (kernel + extraction into sorted slabs)
-    # against the plain version, which also returns sorted slabs
-    ms = time_cuda(lambda: kh.spgemm_hash_bin(*hargs, **hkw), KERNEL_RUNS)
-    kernel_ms = time_cuda(lambda: kh.hash_tables(*hargs, **hkw), KERNEL_RUNS)
-    plain_ms = time_cuda(lambda: kh.hash_bin_plain(*hargs, **hkw), 3)
-    r, e = hb.a_rows.shape
-    products = float(hb.a_lens.long().sum())
-    by = (ell_bytes(hb.a_rows) + unique_b_bytes(hb.a_rows, hb.a_lens)
-          + r * width * 8 + r * 4)
-    b_ms, b_by = bound(by, 4 * products, INT32_OPS_PER_S)
-    log(f"hash: R {r} E {e} table {hb.table}+{hb.spill} products "
-        f"{int(products)} overflow rows {int((~fits).sum())} max_abs_err "
-        f"{err:.3g} kernel + extraction {ms:.3f} ms (kernel alone "
-        f"{kernel_ms:.3f} ms) plain {plain_ms:.3f} ms bound {b_ms:.3f} ms "
-        f"({b_by}, {by / 1e9:.4f} GB)")
+    hash_bins = [hash_case(f"hash powerlaw t{hb.table}", a_pl, hb)
+                 for hb in sorted(plan_p.hash, key=lambda h: h.table)]
+    if len(plan_p.hash) != 7:
+        log(f"hash: the power-law plan has {len(plan_p.hash)} hash bins")
+    plan_t = tri_cache.peek(planner.structure_key(
+        low, low, OceanConfig(), None, True, True))
+    if plan_t.hash:
+        hb_t = max(plan_t.hash, key=lambda h: h.table)
+        hash_bins.append(hash_case(f"hash triangles t{hb_t.table}", low,
+                                   hb_t))
+    else:
+        log("hash: the triangle plan has no hash bin at this scale")
+    hash_edge_cases(kh, dev)
+    top = hash_bins[int(np.argmax([len(h.rows) for h in
+                                   sorted(plan_p.hash,
+                                          key=lambda h: h.table)]))]
     kernels.append({
         "name": "spgemm_hash_bin", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spgemm_hash.cu",
         "replaces": "src/repro/kernels/spgemm_hash.py:170",
         "launches": counts["hash"], "launches_by_path": by_path["hash"],
-        "max_abs_err": err, "ms": ms, "kernel_only_ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-        "shape": {"R": r, "E": e, "table": hb.table, "spill": hb.spill}})
+        **{k: v for k, v in top.items() if k != "bin"},
+        "bins": hash_bins})
 
     # hll_merge: the estimation workflow's prediction merge over all of A
     sk = torch.cat([plan_b.b_sketches,

@@ -37,7 +37,8 @@ U = ctypes.c_uint
 # so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "ocean_dense_slab": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-    "ocean_hash_bin": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    "ocean_hash_slab": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "ocean_hash_blocks_per_sm": (I, I, I, P),
     "ocean_hll_merge": (P, P, P, P, P, I, I, I, F, P),
     "ocean_hll_sketch": (P, P, P, I, I, U, P),
     "ocean_count_bin": (P, P, P, P, P, P, P, I, I, I, I, P),

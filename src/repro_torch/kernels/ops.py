@@ -2,10 +2,9 @@
 
 PyTorch port of ``repro.kernels.ops``. Which implementation runs is decided
 by the tensors' device alone: CUDA tensors go through the hand-written
-kernels, CPU tensors through their plain versions. The dense kernel writes
-compacted slabs itself; ``extract_window_rows``, the reference's XLA window
-compaction, is the plain version's epilogue. The hash tables' compaction is
-plain torch.
+kernels, CPU tensors through their plain versions. The dense and hash
+kernels write compacted slabs themselves; ``extract_window_rows``, the
+reference's XLA window compaction, is the dense plain version's epilogue.
 """
 from __future__ import annotations
 
@@ -15,10 +14,10 @@ from ..core.formats import CSR, pad_axis
 from .hll import hll_merge, hll_sketch
 from .spgemm_dense import (extract_window_rows, spgemm_count_bin,
                            spgemm_dense_slab)
-from .spgemm_hash import extract_hash_rows, spgemm_hash_bin
+from .spgemm_hash import spgemm_hash_bin
 
 __all__ = ["prep_bin_structure", "gather_bin_values", "pad_b_flat",
-           "extract_window_rows", "extract_hash_rows", "dense_bin_op",
+           "extract_window_rows", "dense_bin_op",
            "hash_bin_op", "count_bin_op", "build_sketches_op",
            "merge_estimate_op"]
 
@@ -62,9 +61,11 @@ def dense_bin_op(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols_pad,
 def hash_bin_op(a_rows, a_vals, a_starts, a_lens, b_cols_pad, b_vals_pad,
                 *, table: int, spill: int, f_chunk: int = F_CHUNK,
                 tile: int = 8):
-    """Run one bin through the hash accumulator and compact it.
+    """Run one bin through the hash accumulator, compacted into slabs.
 
-    Returns (cols (R, table+spill), vals (R, table+spill), nnz (R,))."""
+    Returns (cols (R, table+spill), vals (R, table+spill), nnz (R,)), as
+    the reference's ``hash_bin_op``. One launch per bin: the kernel keeps
+    each row's primary table on chip and writes its sorted slab."""
     return spgemm_hash_bin(a_rows, a_vals, a_starts, a_lens, b_cols_pad,
                            b_vals_pad, table=table, spill=spill,
                            f_chunk=f_chunk, tile=tile)

@@ -1,12 +1,14 @@
 """Hash-table accumulator for one bin of output rows.
 
-:func:`spgemm_hash_bin` is the port of the Pallas ``spgemm_hash_bin``
-(``repro/kernels/spgemm_hash.py:170``) followed by the reference's
-``ops.extract_hash_rows``. For CUDA tensors it launches the hand-written
-kernel in ``csrc/spgemm_hash.cu`` (primary table in shared memory, spill
-table in global memory) and compacts its tables; for CPU tensors it runs
-:func:`hash_bin_plain`, a PyTorch port of the XLA twin ``_hash_bin_xla``.
-Both return column-sorted slabs ``(cols, vals, nnz)`` of width
+:func:`spgemm_hash_bin` is the port of the reference's ``hash_bin_op``
+(``repro/kernels/ops.py:283``): the Pallas ``spgemm_hash_bin``
+(``repro/kernels/spgemm_hash.py:170``) followed by its epilogue
+``extract_hash_rows``. For CUDA tensors it launches the hand-written kernel
+in ``csrc/spgemm_hash.cu`` (:func:`hash_slab`), which keeps each row's
+primary table in shared memory, opens the row's spill only when the primary
+refuses an insert, and writes the row's column-sorted slab itself; for CPU
+tensors it runs :func:`hash_bin_plain`, a PyTorch port of the XLA twin
+``_hash_bin_xla``. Both return slabs ``(cols, vals, nnz)`` of width
 ``table + spill``.
 
 Per-row ``nnz`` is the exact distinct count for every row that fits its
@@ -17,6 +19,9 @@ which is all the executor's overflow scan reads.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..core.esc import segment_sum
@@ -24,7 +29,9 @@ from ..core.formats import PAD_COL
 from . import _build
 from .spgemm_dense import _check_inputs, enumerate_products, row_chunks
 
-_BIG = 2**30  # sorts empty table slots after every real column
+# Threads a block at most: the kernel's ``__launch_bounds__``.
+MAX_BLOCK_THREADS = 256
+SLOT_BYTES = 8  # key int32 + value f32
 
 
 def hash_bin_plain(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
@@ -61,56 +68,89 @@ def hash_bin_plain(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
     return cols_out, vals_out, nnz
 
 
-def extract_hash_rows(keys, vals, skeys, svals, fail):
-    """Compact per-row tables (primary + spill) into column-sorted slabs.
-
-    Returns (cols (R, table+spill) int32 padded with PAD_COL, vals,
-    nnz (R,) int32 = occupied slots + failed inserts)."""
-    k = torch.cat([keys, skeys], dim=1)
-    v = torch.cat([vals, svals], dim=1)
-    key = torch.where(k >= 0, k, torch.full_like(k, _BIG))
-    key_s, order = torch.sort(key, dim=1)
-    val_s = torch.gather(v, 1, order)
-    occ = (k >= 0).sum(dim=1, dtype=torch.int32)
-    nnz = occ + fail.reshape(-1)
-    slot = torch.arange(k.shape[1], device=k.device)[None, :]
-    ok = (slot < occ[:, None]) & (key_s < _BIG)
-    cols = torch.where(ok, key_s, torch.full_like(key_s, PAD_COL))
-    out_vals = torch.where(ok, val_s, torch.zeros_like(val_s))
-    return cols, out_vals, nnz
-
-
-def hash_tables(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
-                table: int, spill: int):
-    """Launch the CUDA kernel: per-row tables (keys (R, table) int32 with
-    -1 empties, vals (R, table) f32, skeys/svals (R, spill), fail (R, 1)
-    int32). CUDA tensors only."""
-    if a_rows.device.type != "cuda":
-        raise ValueError("hash_tables launches the CUDA kernel; tensors on "
-                         f"{a_rows.device}")
-    r, e = a_rows.shape
-    _check_inputs(dict(a_rows=a_rows, a_vals=a_vals, a_starts=a_starts,
-                       a_lens=a_lens, b_cols=b_cols, b_vals=b_vals), r, e)
+def _check_tables(table: int, spill: int) -> None:
     for name, size in (("table", table), ("spill", spill)):
         if size < 16 or size > 4096 or size & (size - 1):
             raise ValueError(f"{name} {size} must be a power of two in "
                              "[16, 4096]")
+
+
+def launch_shape(table: int, spill: int, blocks_per_sm):
+    """``(lanes, rows, smem_bytes)`` of the kernel for a bin's tables: lanes
+    a row (a group of 8 for t32, 16 for t64, a warp from t128 up), rows a
+    block (whole warps, at most ``MAX_BLOCK_THREADS`` threads; the count
+    that lets an SM hold the most rows at once, the smallest such), and the
+    block's dynamic shared memory (the primary tables). ``blocks_per_sm(
+    lanes, rows, smem)`` is how many such blocks one SM holds at once, 0
+    when one cannot launch: on the card the CUDA occupancy API's answer for
+    the kernel as built (:func:`launch_shape_on`)."""
+    _check_tables(table, spill)
+    lanes = min(32, max(8, table // 4))
+    per_warp = 32 // lanes
+    best = None
+    for rows in range(per_warp, MAX_BLOCK_THREADS // lanes + 1, per_warp):
+        smem = rows * table * SLOT_BYTES
+        held = rows * blocks_per_sm(lanes, rows, smem)
+        if held and (best is None or held > best[0]):
+            best = (held, rows, smem)
+    if best is None:
+        raise ValueError(f"no block of {lanes}-lane rows with tables "
+                         f"{table}+{spill} fits an SM")
+    return lanes, best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape_on(device_index: int, table: int, spill: int):
+    """:func:`launch_shape` on CUDA device ``device_index``, from the
+    occupancy API (``ocean_hash_blocks_per_sm``)."""
+    fn = _build.library().ocean_hash_blocks_per_sm
+
+    def blocks_per_sm(lanes, rows, smem):
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            status = fn(lanes, rows, smem, ctypes.addressof(out))
+        if status != 0:
+            raise RuntimeError("CUDA occupancy query failed: cudaError "
+                               f"{status}")
+        return out.value
+
+    return launch_shape(table, spill, blocks_per_sm)
+
+
+def hash_slab(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
+              table: int, spill: int):
+    """Launch the CUDA kernel: one bin into column-sorted slabs
+    ``(cols, vals, nnz)``, as :func:`spgemm_hash_bin`. CUDA tensors only.
+    The spill lives in global scratch allocated here, the paper's
+    shared/global split (not initialised: a row initialises its own spill
+    when it first needs it)."""
+    if a_rows.device.type != "cuda":
+        raise ValueError("hash_slab launches the CUDA kernel; tensors on "
+                         f"{a_rows.device}")
+    r, e = a_rows.shape
+    _check_inputs(dict(a_rows=a_rows, a_vals=a_vals, a_starts=a_starts,
+                       a_lens=a_lens, b_cols=b_cols, b_vals=b_vals), r, e)
+    _check_tables(table, spill)
+    if r >= 2**31:
+        raise ValueError(f"{r} rows exceed the grid")
     dev = a_rows.device
-    keys = torch.empty((r, table), dtype=torch.int32, device=dev)
-    vals = torch.empty((r, table), dtype=torch.float32, device=dev)
-    skeys = torch.empty((r, spill), dtype=torch.int32, device=dev)
-    svals = torch.empty((r, spill), dtype=torch.float32, device=dev)
-    fail = torch.empty((r, 1), dtype=torch.int32, device=dev)
+    width = table + spill
+    cols = torch.empty((r, width), dtype=torch.int32, device=dev)
+    vals = torch.empty((r, width), dtype=torch.float32, device=dev)
+    nnz = torch.empty(r, dtype=torch.int32, device=dev)
     if r == 0:
-        return keys, vals, skeys, svals, fail
+        return cols, vals, nnz
+    lanes, rows, _ = launch_shape_on(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        table, spill)
+    scratch = torch.empty((r, spill), dtype=torch.int64, device=dev)
     _build.launch(
-        "ocean_hash_bin", dev, a_rows.data_ptr(), a_vals.data_ptr(),
+        "ocean_hash_slab", dev, a_rows.data_ptr(), a_vals.data_ptr(),
         a_starts.data_ptr(), a_lens.data_ptr(), b_cols.data_ptr(),
-        b_vals.data_ptr(), keys.data_ptr(), vals.data_ptr(),
-        skeys.data_ptr(), svals.data_ptr(), fail.data_ptr(), r, e, table,
-        spill)
+        b_vals.data_ptr(), scratch.data_ptr(), cols.data_ptr(),
+        vals.data_ptr(), nnz.data_ptr(), r, e, table, spill, lanes, rows)
     spgemm_hash_bin.launches += 1
-    return keys, vals, skeys, svals, fail
+    return cols, vals, nnz
 
 
 def spgemm_hash_bin(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
@@ -118,17 +158,20 @@ def spgemm_hash_bin(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
                     tile: int = 8):
     """Hash accumulation of one bin, compacted: (cols, vals, nnz).
 
-    ``f_chunk`` and ``tile`` are the reference kernel's DMA-chunk and
-    row-tile knobs. This design streams B per thread and gives each row its
-    own block, so both mean nothing here: they are accepted, for the
-    plan's tuned values, and ignored."""
+    a_rows/a_starts/a_lens: (R, E) int32 — B-row ids (pad -1), their starts
+    and lengths in the flat B arrays (pad 0); a_vals (R, E) f32;
+    b_cols/b_vals the flat B arrays. Returns (cols (R, table+spill) int32
+    column-sorted, padded with PAD_COL, vals (R, table+spill) f32,
+    nnz (R,) int32). ``f_chunk`` and ``tile`` are the reference kernel's
+    DMA-chunk and row-tile knobs; this design loads B per lane and sizes
+    its row groups from the table, so both are accepted, for the plan's
+    tuned values, and ignored."""
     del f_chunk, tile
     if a_rows.device.type == "cpu":
         return hash_bin_plain(a_rows, a_vals, a_starts, a_lens, b_cols,
                               b_vals, table=table, spill=spill)
-    return extract_hash_rows(*hash_tables(a_rows, a_vals, a_starts, a_lens,
-                                          b_cols, b_vals, table=table,
-                                          spill=spill))
+    return hash_slab(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals,
+                     table=table, spill=spill)
 
 
 spgemm_hash_bin.launches = 0  # launch count of the CUDA kernel

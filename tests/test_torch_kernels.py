@@ -170,32 +170,6 @@ def test_hash_plain_matches_xla_twin_and_pallas(table, n_distinct):
         np.testing.assert_array_equal(x.numpy(), y)
 
 
-def test_extract_hash_rows_matches():
-    rng = np.random.default_rng(8)
-    keys = np.full((4, 32), -1, np.int32)
-    skeys = np.full((4, 16), -1, np.int32)
-    for i in range(4):
-        cols = rng.choice(500, 20 + i, replace=False)
-        slots = rng.choice(48, len(cols), replace=False)
-        for c, s in zip(cols, slots):
-            (keys[i] if s < 32 else skeys[i])[s % 32 if s < 32 else s - 32] \
-                = c
-    vals = rng.standard_normal((4, 32)).astype(np.float32)
-    svals = rng.standard_normal((4, 16)).astype(np.float32)
-    fail = np.array([[0], [0], [2], [0]], np.int32)
-    want = rops.extract_hash_rows(*[jnp.asarray(x) for x in
-                                    (keys, vals, skeys, svals, fail)])
-    got = khash.extract_hash_rows(*_t(keys, vals, skeys, svals, fail))
-    for x, y in zip(got, want):
-        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
-
-
-def test_hash_tables_refuses_cpu_tensors():
-    args = _t(*_hash_workload(1, 2, 4, 8, 20))
-    with pytest.raises(ValueError, match="CUDA kernel"):
-        khash.hash_tables(*args, table=32, spill=16)
-
-
 @pytest.mark.parametrize("m_regs", [32, 64])
 @pytest.mark.parametrize("ra,k,nb", [(4, 8, 16), (8, 5, 100)])
 def test_hll_merge_plain_matches_reference_and_pallas(m_regs, ra, k, nb):
