@@ -17,29 +17,39 @@ Phases, each of which raises on failure:
    (plan built) and warm (plan-cache hit), with every kernel's launch count
    set to 0 just before each matrix and read just after, and the kernels
    each matrix's path must launch checked (the dense kernel once per dense
-   bin of the plan); C is checked against
+   bin of the plan; the count kernel once per cold symbolic prediction, not
+   at all when warm); C is checked against
    ``scipy.sparse``, and one ``torch.sparse`` product of the same matrix is
    timed as a yardstick; then one more warm call per matrix under
    torch.profiler gives the device's busy time and idle share;
 2c. the graph path, each call counted the same way: ``triangle_count`` on
    an R-MAT graph of ``2**graph_scale`` vertices, cold and warm on one plan
-   cache (the count kernel in its symbolic prediction; checked against
+   cache (the count kernel once in its cold symbolic prediction; checked
+   against
    scipy's ``sum(L .* (L @ L))``); ``k_hop_frontier`` over 3 hops on an
    R-MAT graph 4x larger (``hll_sketch`` + ``hll_merge`` in the hops that
    take estimation; each hop's vertex set checked against scipy boolean
-   products); ``markov_cluster`` for 4 iterations on one 16x smaller (each
-   iteration checked against a scipy expand -> inflate -> normalize ->
+   products); ``markov_cluster`` for 4 iterations on one 16x smaller (the
+   count kernel once in the first iteration; each iteration checked
+   against a scipy expand -> inflate -> normalize ->
    prune step from the same input, the labels against the scipy twin's);
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2 and phase-2c paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
    triangle plan's widest), with times from CUDA events, each kernel's
    bound and, for the dense and hash bins, one ``torch.sparse`` product of
-   the same rows; then the dense and hash kernels on edge cases the paths
-   may not give them (dense: rows past the slab's cap, padding, a B row
-   over the stage, a column range wider than one shared-memory bitmap;
-   hash: rows that spill or overflow both tables, padding, repeated
-   columns, t2048 rows at and past 3,072 columns);
+   the same rows (the count kernel on every counted row of the triangle
+   and power-law plans, row nnz equal to its plain version and to a
+   ``torch.sparse`` product of the same rows, and on banded's W 256 bin
+   with the TPU contract's per-slot counts); then the dense, hash and count
+   kernels on edge cases the paths may not give them (dense: rows past the
+   slab's cap, padding, a B row over the stage, a column range wider than
+   one shared-memory bitmap; hash: rows that spill or overflow both tables,
+   padding, repeated columns, t2048 rows at and past 3,072 columns; count:
+   output ranges of 4096 columns, ranges ending at the last column,
+   repeated columns, empty rows, rows with more products than a warp's
+   stage, each as a row a warp and as a row a block, and a one-row
+   launch);
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
    against scipy, which also drives the ESC and upper-bound paths.
 
@@ -172,7 +182,7 @@ def library_product(a, runs: int):
 def reset_counts(kd, kh, kl) -> None:
     kd.spgemm_dense_slab.window_launches = 0
     kd.spgemm_dense_slab.longrow_launches = 0
-    kd.spgemm_count_bin.launches = 0
+    kd.spgemm_count_rows.launches = 0
     kh.spgemm_hash_bin.launches = 0
     kl.hll_merge.launches = 0
     kl.hll_sketch.launches = 0
@@ -184,7 +194,7 @@ def read_counts(kd, kh, kl) -> dict:
             "hash": kh.spgemm_hash_bin.launches,
             "hll_merge": kl.hll_merge.launches,
             "hll_sketch": kl.hll_sketch.launches,
-            "count": kd.spgemm_count_bin.launches}
+            "count": kd.spgemm_count_rows.launches}
 
 
 def tuned_load_factors(tuning, dev) -> dict:
@@ -288,7 +298,8 @@ def check_hash_slab(label, got, want, width):
 
 def library_rows(a, rows):
     """Median ms of one ``torch.sparse`` CSR @ CSR call of A's ``rows`` by
-    A (cuSPARSE), the library's time for a bin's function, and its nnz."""
+    A (cuSPARSE), the library's time for a bin's function, and its nnz per
+    row (int64, in the order of ``rows``)."""
     import torch
     from repro_torch.core import planner
     sub = planner.gather_rows(a, rows)
@@ -298,8 +309,8 @@ def library_rows(a, rows):
     tb = torch.sparse_csr_tensor(a.indptr, a.indices[: a.nnz],
                                  a.values[: a.nnz], size=a.shape,
                                  check_invariants=False)
-    lib_nnz = int((ta @ tb)._nnz())
-    return time_cuda(lambda: ta @ tb, 3), lib_nnz
+    lib_rows = torch.diff((ta @ tb).crow_indices()).long()
+    return time_cuda(lambda: ta @ tb, 3), lib_rows
 
 
 def ell_of(rng, b_rows, ell):
@@ -403,6 +414,70 @@ def hash_edge_cases(kh, dev) -> None:
          [0, 1, 2, 3, 4], [4, 3, 2, 1, 0]], 2048)
     log("hash edge cases: rows of 3,000 / 3,072 / 3,073 distinct columns at "
         "t2048 (the last overflows)")
+
+
+def count_edge_cases(kd, ops, dev) -> None:
+    """The count kernel's row list on rows the main path may not give it:
+    an output range of exactly 4096 columns, a range ending at the last
+    column, a B row holding a column three times, an empty A row, a row
+    whose B rows are empty, and rows of 40, 300 and 2,000 A entries (more
+    products than a warp's stage; more chunks of 32 entries than a block
+    has warps). The list runs with every row a warp, every row a block, in
+    the order the path would launch it, and each row alone, a warp and a
+    block; every launch equal to the plain version."""
+    import torch
+    from repro_torch.core import analysis, formats, planner
+    rng = np.random.default_rng(2)
+    n = 10000
+    b_rows = [np.array([0, 17, 4095]), np.array([n - 3, n - 1]),
+              np.array([5, 5, 9, 9, 5]), np.array([], np.int64)]
+    b_rows += [np.sort(rng.choice(4096, k, replace=False)) + 3000
+               for k in rng.integers(1, 300, 60)]
+    rand = np.arange(4, len(b_rows))
+    a_rows = [[0], [1], [2, 2], [], [3, 3], rng.choice(rand, 40),
+              rng.choice(rand, 300), rng.choice(rand, 2000)]
+
+    def csr(rows, n_cols):
+        ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+        idx = np.concatenate([np.asarray(r, np.int64) for r in rows])
+        return formats.from_numpy_csr(ptr, idx, np.ones(len(idx), np.float32),
+                                      (len(rows), n_cols), device=dev)
+
+    a, b = csr(a_rows, len(b_rows)), csr(b_rows, n)
+    prod, lo, hi = (formats.host(x) for x in analysis._fused_stats(a, b))
+    rows = planner.counted_rows(lo, hi, prod)
+    if list(rows) != [0, 1, 2, 5, 6, 7]:
+        raise AssertionError(f"count edge cases: counted rows {rows}")
+    csrs = (a.indptr, a.indices, b.indptr, b.indices)
+
+    def run(label, t_rows, t_lo, heavy):
+        got = torch.full((a.m,), -1, dtype=torch.int64, device=dev)
+        want = got.clone()
+        kd.spgemm_count_rows(*csrs, t_rows, t_lo, got, heavy=heavy)
+        kd.count_rows_plain(*csrs, t_rows, t_lo, want)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"count edge case {label}: "
+                                 f"{got.tolist()}, plain {want.tolist()}")
+        return want
+
+    def listed(sel):
+        t = torch.from_numpy(np.stack([rows[sel], lo[rows[sel]]]).astype(
+            np.int32)).to(dev)
+        return t[0], t[1]
+
+    every = np.arange(len(rows))
+    want = run("a warp a row", *listed(every), 0)
+    run("a block a row", *listed(every[::-1]), len(rows))
+    t_rows, t_lo, heavy = ops.count_rows_inputs(rows, lo[rows], prod[rows],
+                                                dev)
+    run(f"launch order ({heavy} a block)", t_rows, t_lo, heavy)
+    for i in every:
+        for h in (0, 1):
+            run(f"row {rows[i]} alone, heavy {h}", *listed([i]), h)
+    log(f"count edge cases: row nnz {want.tolist()} (-1: not listed), "
+        f"products {prod[rows].tolist()}, A entries "
+        f"{[len(a_rows[r]) for r in rows]}; every launch equal to plain")
 
 
 def profile_call(name, a, cache, workflow) -> None:
@@ -563,8 +638,14 @@ def main() -> int:
                                      f"dense bins of its plan {want}")
         log(f"{name}: dense launches per call {json.dumps(want)}, one per "
             "bin")
-    log(f"powerlaw: count kernel launches (symbolic prediction of its "
-        f"windowed rows) {path_counts['powerlaw']['count']}")
+    # the count kernel: one launch per cold symbolic prediction, none warm
+    for name, want in (("banded", {"cold": 0, "warm": 0}),
+                       ("powerlaw", {"cold": 1, "warm": 0})):
+        got = {call: call_counts[name, call]["count"] for call in want}
+        if got != want:
+            raise AssertionError(f"{name}: count launches {got}, want {want}"
+                                 " (one per cold symbolic prediction)")
+        log(f"{name}: count kernel launches per call {json.dumps(got)}")
     for name, a in mats:
         log(f"{name}: hash bins (table: rows) " + json.dumps(
             {hb.table: len(hb.rows) for hb in plan_of(name, a).hash}))
@@ -616,6 +697,7 @@ def main() -> int:
     tri_cache = planner.PlanCache()
     reset_counts(kd, kh, kl)
     tris = []
+    tri_count_launches = {}
     for call in ("cold", "warm"):
         before = read_counts(kd, kh, kl)
         torch.cuda.reset_peak_memory_stats()
@@ -624,13 +706,17 @@ def main() -> int:
         tri, rep = graph.triangle_count(adj_t, cache=tri_cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        log_call(f"triangles {call} (L nnz {low.nnz})", rep, wall,
-                 {k: v - before[k] for k, v in
-                  read_counts(kd, kh, kl).items()},
+        launched = {k: v - before[k]
+                    for k, v in read_counts(kd, kh, kl).items()}
+        tri_count_launches[call] = launched["count"]
+        log_call(f"triangles {call} (L nnz {low.nnz})", rep, wall, launched,
                  torch.cuda.max_memory_allocated() / 2**30)
         log(f"  triangles {tri}")
         tris.append(tri)
     path_counts["triangles"] = read_counts(kd, kh, kl)
+    if tri_count_launches != {"cold": 1, "warm": 0}:
+        raise AssertionError(f"triangles: count launches "
+                             f"{tri_count_launches}, want cold 1, warm 0")
     t0 = time.perf_counter()
     l_sp = to_scipy(low).astype(np.float64)
     want = int(round((l_sp @ l_sp).multiply(l_sp).sum()))
@@ -766,6 +852,12 @@ def main() -> int:
         + f"; max abs diff over the iterations {mcl_err:.3g}")
 
     require({"triangles": ["count"]})
+    mcl_counts = [launched["count"] for _, _, _, launched in runner.steps]
+    if mcl_counts[0] != 1:
+        raise AssertionError(f"MCL iteration 1: {mcl_counts[0]} count "
+                             "launches, want 1 (its symbolic prediction)")
+    log(f"count kernel launches: triangles {json.dumps(tri_count_launches)}"
+        f", MCL by iteration {mcl_counts}")
     counts = {k: sum(pc[k] for pc in path_counts.values())
               for k in read_counts(kd, kh, kl)}
     by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
@@ -798,7 +890,8 @@ def main() -> int:
                        KERNEL_RUNS)
         plain_ms = time_cuda(lambda: kd.dense_slab_plain(*args_, **kw), 3)
         # the library: one torch.sparse product of the bin's rows of A by B
-        lib_ms, lib_nnz = library_rows(a, be.rows)
+        lib_ms, lib_rows = library_rows(a, be.rows)
+        lib_nnz = int(lib_rows.sum())
         r, e = be.a_rows.shape
         products = float(torch.where(be.a_rows >= 0, be.a_lens, 0)
                          .long().sum())
@@ -848,7 +941,8 @@ def main() -> int:
         del got, want
         ms = time_cuda(lambda: kh.spgemm_hash_bin(*args_, **kw), KERNEL_RUNS)
         plain_ms = time_cuda(lambda: kh.hash_bin_plain(*args_, **kw), 3)
-        lib_ms, lib_nnz = library_rows(a, hb.rows)
+        lib_ms, lib_rows = library_rows(a, hb.rows)
+        lib_nnz = int(lib_rows.sum())
         if lib_nnz != nnz:
             raise AssertionError(f"{label}: torch.sparse has {lib_nnz} "
                                  f"entries, the plain version {nnz}")
@@ -961,17 +1055,79 @@ def main() -> int:
         "launches_by_path": by_path["hll_sketch"], **sk_band,
         "library_ms": None, "also": sk_pl})
 
-    # the count kernel: one launch of the triangle path's symbolic stage,
-    # and banded's W 256 bin with the TPU contract's counts
-    def count_case(label, a_rows, a_starts, a_lens, row_lo, b_cols, window,
-                   want_counts):
+    # the count kernel: every counted row of the triangle and power-law
+    # plans in one launch each, as their symbolic predictions make it; then
+    # banded's W 256 bin with the TPU contract's per-slot counts
+    def count_rows_case(label, a):
+        prod, lo, hi = (formats.host(x)
+                        for x in analysis._fused_stats(a, a))
+        rows = planner.counted_rows(lo, hi, prod)
+        t_rows, t_lo, heavy = ops.count_rows_inputs(rows, lo[rows],
+                                                    prod[rows], dev)
+        args_ = (a.indptr, a.indices, a.indptr, a.indices, t_rows, t_lo)
+        out = torch.zeros(a.m, dtype=torch.int64, device=dev)
+        pout = torch.zeros_like(out)
+        kd.spgemm_count_rows(*args_, out, heavy=heavy)
+        kd.count_rows_plain(*args_, pout)
+        torch.cuda.synchronize()
+        if not torch.equal(out, pout):
+            raise AssertionError(f"count {label}: row nnz differs from "
+                                 "plain")
+        ms = time_cuda(lambda: kd.spgemm_count_rows(*args_, out,
+                                                    heavy=heavy),
+                       KERNEL_RUNS)
+        plain_ms = time_cuda(lambda: kd.count_rows_plain(*args_, pout), 3)
+        # the same launch with every row a warp, in list order: what the
+        # heavy rows' blocks gain
+        flat = torch.from_numpy(np.stack([rows, lo[rows]]).astype(
+            np.int32)).to(dev)
+        warp_ms = time_cuda(lambda: kd.spgemm_count_rows(
+            a.indptr, a.indices, a.indptr, a.indices, flat[0], flat[1], out),
+            KERNEL_RUNS)
+        if not torch.equal(out, pout):
+            raise AssertionError(f"count {label}: row nnz differs from "
+                                 "plain with every row a warp")
+        lib_ms, lib_rows = library_rows(a, rows)
+        t_sorted = torch.from_numpy(rows).to(dev)
+        if not torch.equal(lib_rows, out[t_sorted]):
+            raise AssertionError(f"count {label}: torch.sparse row nnz "
+                                 "differs")
+        # bytes: the row list and row_lo, each row's A offsets and entries,
+        # the offsets and columns of the B rows they reference (each once),
+        # the row nnz written; operations: one bit set a product
+        sub = planner.gather_rows(a, rows)
+        k = torch.unique(sub.indices[: sub.nnz].long())
+        b_len = (a.indptr[k + 1] - a.indptr[k]).long()
+        by = (len(rows) * 8 * 3 + sub.nnz * 4 + k.numel() * 8
+              + float(b_len.sum()) * 4)
+        products = float(prod[rows].sum())
+        b_ms, b_by = bound(by, products, INT32_OPS_PER_S)
+        warps, resident = kd.count_rows_launch_shape_on(
+            torch.cuda.current_device())
+        log(f"count {label}: rows {len(rows)} (of {a.m}; {heavy} a block, "
+            f"{warps} warps a block, {resident} warps resident) products "
+            f"{int(products)} (max a row {int(prod[rows].max())}) nnz "
+            f"{int(out.sum())} exact, torch.sparse row nnz equal; kernel "
+            f"{ms:.4f} ms (every row a warp {warp_ms:.4f} ms) plain "
+            f"{plain_ms:.3f} ms torch.sparse {lib_ms:.3f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}, {by / 1e9:.4f} GB)")
+        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "every_row_a_warp_ms": warp_ms,
+                "shape": {"rows": len(rows), "heavy_rows": heavy,
+                          "warps_a_block": warps,
+                          "products": int(products),
+                          "nnz": int(out.sum()), "matrix": label}}
+
+    def count_bin_case(label, a_rows, a_starts, a_lens, row_lo, b_cols,
+                       window):
+        """The TPU contract: an ELL bin's per-slot counts and row nnz."""
         args_ = (a_rows, a_starts, a_lens, row_lo, b_cols)
-        kw = dict(window=window, want_counts=want_counts)
+        kw = dict(window=window, want_counts=True)
         cnt, nnz = kd.spgemm_count_bin(*args_, **kw)
         pcnt, pnnz = kd.count_bin_plain(*args_, **kw)
         torch.cuda.synchronize()
-        if not torch.equal(nnz, pnnz) or (
-                want_counts and not torch.equal(cnt, pcnt)):
+        if not torch.equal(nnz, pnnz) or not torch.equal(cnt, pcnt):
             raise AssertionError(f"count {label}: differs from plain")
         ms = time_cuda(lambda: kd.spgemm_count_bin(*args_, **kw),
                        KERNEL_RUNS)
@@ -980,38 +1136,29 @@ def main() -> int:
         products = float(torch.where(a_rows >= 0, a_lens, 0).long().sum())
         live = float((a_rows >= 0).sum())
         by = (a_rows.numel() * 4 + live * 8 + r * 4
-              + unique_b_bytes(a_rows, a_lens) / 2 + r * 4
-              + (r * window * 4 if want_counts else 0))
+              + unique_b_bytes(a_rows, a_lens) / 2 + r * 4 + r * window * 4)
         b_ms, b_by = bound(by, products, INT32_OPS_PER_S)
         log(f"count {label}: R {r} E {e} W {window} products "
-            f"{int(products)} counts {want_counts} exact; kernel {ms:.3f} "
-            f"ms plain {plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}, "
+            f"{int(products)} counts exact; kernel {ms:.3f} ms plain "
+            f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}, "
             f"{by / 1e9:.4f} GB)")
         return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "shape": {"R": r, "E": e, "window": window,
-                          "want_counts": want_counts, "bin": label}}
+                          "want_counts": True, "bin": label}}
 
-    prod_t, lo_t, hi_t = (formats.host(x)
-                          for x in analysis._fused_stats(low, low))
-    groups = planner.count_groups(lo_t, hi_t, prod_t,
-                                  np.diff(formats.host(low.indptr)))
-    rows, window, ell = max(groups, key=lambda g: len(g[0]) * g[2])
-    _, _, ar, ast, aln = ops.prep_bin_structure(low, low, rows, ell)
-    row_lo = torch.from_numpy(lo_t[rows].reshape(-1, 1).astype(
-        np.int32)).to(dev)
-    b_cols_low = ops.pad_b_flat(low)[0]
-    cnt_tri = count_case("triangles", ar, ast, aln, row_lo, b_cols_low,
-                         window, False)
-    cnt_band = count_case("banded W256", be_w.a_rows, be_w.a_starts,
-                          be_w.a_lens, be_w.row_lo, ops.pad_b_flat(a_band)[0],
-                          be_w.window, True)
+    cnt_tri = count_rows_case("triangles", low)
+    cnt_pl = count_rows_case("powerlaw", a_pl)
+    cnt_band = count_bin_case("banded W256", be_w.a_rows, be_w.a_starts,
+                              be_w.a_lens, be_w.row_lo,
+                              ops.pad_b_flat(a_band)[0], be_w.window)
+    count_edge_cases(kd, ops, dev)
     kernels.append({
         "name": "spgemm_count_bin", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/spgemm_count.cu",
         "replaces": "src/repro/kernels/spgemm_dense.py:148",
         "launches": counts["count"], "launches_by_path": by_path["count"],
-        **cnt_tri, "library_ms": None, "also": cnt_band})
+        **cnt_tri, "also": [cnt_pl, cnt_band]})
     done()
 
     # ---------------- 4. small suite on the card ----------------

@@ -28,9 +28,8 @@ from . import esc as esc_mod
 from . import tuning as tuning_mod
 from .analysis import (AnalysisResult, OceanConfig, analyze,
                        sharded_merge_estimate, sketches_for)
-from .binning import (WINDOW_LADDER, BinPlan, plan_bins,
-                      round_up_ladder_vec)
-from .formats import CSR, csr_from_arrays, flat_gather_index, host, pad_axis
+from .binning import WINDOW_LADDER, BinPlan, plan_bins
+from .formats import CSR, csr_from_arrays, flat_gather_index, host
 
 
 @dataclasses.dataclass
@@ -124,64 +123,41 @@ def gather_rows(a: CSR, rows: np.ndarray) -> CSR:
 # Symbolic prediction
 # ---------------------------------------------------------------------------
 
-# ELL slots (rows x width) of one count launch: its structure blocks
-# (``kops.prep_bin_structure``, about 21 bytes a slot and as much again in
-# temporaries) stay near 1 GiB.
-COUNT_LAUNCH_SLOTS = 1 << 25
+def _counted_mask(out_lo, out_hi, live) -> np.ndarray:
+    """``live`` rows whose output column range fits the widest dense window
+    (``WINDOW_LADDER[-1]`` columns, the width of the count kernel's per-row
+    bitmap). Rows that are not live carry sentinel ranges, which the
+    subtraction may wrap; they are masked out."""
+    return live & (np.asarray(out_hi) - np.asarray(out_lo)
+                   < WINDOW_LADDER[-1])
 
 
-def count_groups(out_lo, out_hi, products, a_row_nnz):
-    """The rows the count kernel takes and their launches.
-
-    A row with products whose output column range fits the widest dense
-    window is counted in a window of its range's rung (as ``plan_bins``
-    sizes windows). Rows are grouped by rung and by their A length rounded
-    up to a power of two (the ELL width, at least 8), and each group is cut
-    into launches of at most ``COUNT_LAUNCH_SLOTS`` slots. Returns
-    ``[(rows, window, ell_width), ...]``, rows ascending in each."""
-    width = np.asarray(out_hi, np.int64) - np.asarray(out_lo, np.int64) + 1
-    idx = np.nonzero((np.asarray(products) > 0)
-                     & (width <= WINDOW_LADDER[-1]))[0]
-    if not len(idx):
-        return []
-    window_of = round_up_ladder_vec(width[idx], WINDOW_LADDER)
-    lens = np.maximum(np.asarray(a_row_nnz, np.int64)[idx], 1)
-    ell_of = np.maximum(8, 1 << np.ceil(np.log2(lens)).astype(np.int64))
-    key = window_of * (1 << 32) + ell_of
-    groups = []
-    for k in np.unique(key):
-        rows = idx[key == k]
-        window, ell = int(k >> 32), int(k & 0xFFFFFFFF)
-        step = max(1, COUNT_LAUNCH_SLOTS // ell)
-        groups += [(rows[s:s + step], window, ell)
-                   for s in range(0, len(rows), step)]
-    return groups
+def counted_rows(out_lo, out_hi, products) -> np.ndarray:
+    """The rows the count kernel takes, ascending: rows with products whose
+    output column range fits the widest dense window."""
+    live = np.asarray(products) > 0
+    return np.nonzero(_counted_mask(out_lo, out_hi, live))[0]
 
 
 def symbolic_row_nnz(a: CSR, b: CSR, out_lo, out_hi,
                      products) -> np.ndarray:
     """Exact output nnz of every row of A @ B: (m,) int64, equal to
-    ``esc.symbolic_exact``. The rows of :func:`count_groups` go through the
-    count-only kernel; the other rows with products through
+    ``esc.symbolic_exact``. The rows of :func:`counted_rows` go through the
+    count kernel in one launch; the other rows with products through
     ``esc.symbolic_exact`` on their gathered sub-A."""
     dev = a.device
-    a_ptr = host(a.indptr).astype(np.int64)
+    products = np.asarray(products)
     pred = torch.zeros(a.m, dtype=torch.int64, device=dev)
-    counted = np.zeros(a.m, bool)
-    groups = count_groups(out_lo, out_hi, products, np.diff(a_ptr))
-    if groups:
-        b_cols = pad_axis(b.indices, b.capacity + kops.F_CHUNK, axis=0,
-                          value=-1)
-    for rows, window, ell in groups:
-        row_lo = torch.from_numpy(
-            np.asarray(out_lo)[rows].reshape(-1, 1).astype(np.int32)).to(dev)
-        nnz = kops.count_bin_op(a, b, rows, ell, row_lo, b_cols,
-                                window=window)
-        pred[torch.from_numpy(rows).to(dev)] = nnz.long()
-        counted[rows] = True
-    rest = np.nonzero((np.asarray(products) > 0) & ~counted)[0]
+    live = products > 0
+    counted = _counted_mask(out_lo, out_hi, live)
+    rows = np.nonzero(counted)[0]
+    if len(rows):
+        kops.count_rows_op(a, b, rows, np.asarray(out_lo)[rows],
+                           products[rows], pred)
+    rest = np.nonzero(live & ~counted)[0]
     if len(rest):
-        new_ptr, src = flat_gather_index(a_ptr, rest)
+        new_ptr, src = flat_gather_index(host(a.indptr).astype(np.int64),
+                                         rest)
         sub_ptr = torch.from_numpy(new_ptr).to(dev)
         sub_idx = a.indices[torch.from_numpy(src).to(dev)]
         pred[torch.from_numpy(rest).to(dev)] = esc_mod.symbolic_exact(

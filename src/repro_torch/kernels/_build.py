@@ -42,6 +42,8 @@ SIGNATURES = {
     "ocean_hll_merge": (P, P, P, P, P, I, I, I, F, P),
     "ocean_hll_sketch": (P, P, P, I, I, U, P),
     "ocean_count_bin": (P, P, P, P, P, P, P, I, I, I, I, P),
+    "ocean_count_rows": (P, P, P, P, P, P, P, I, I, I, I, P),
+    "ocean_count_rows_blocks_per_sm": (I, P),
 }
 
 _lock = threading.Lock()

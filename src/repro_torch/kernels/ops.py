@@ -8,17 +8,20 @@ reference's XLA window compaction, is the dense plain version's epilogue.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.formats import CSR, pad_axis
 from .hll import hll_merge, hll_sketch
-from .spgemm_dense import (extract_window_rows, spgemm_count_bin,
+from .spgemm_dense import (count_rows_launch_shape_on, count_rows_schedule,
+                           extract_window_rows, spgemm_count_rows,
                            spgemm_dense_slab)
 from .spgemm_hash import spgemm_hash_bin
 
 __all__ = ["prep_bin_structure", "gather_bin_values", "pad_b_flat",
            "extract_window_rows", "dense_bin_op",
-           "hash_bin_op", "count_bin_op", "build_sketches_op",
+           "hash_bin_op", "count_rows_inputs", "count_rows_op",
+           "build_sketches_op",
            "merge_estimate_op"]
 
 # B arrays are padded by this many slots (the reference's DMA chunk), so
@@ -71,16 +74,40 @@ def hash_bin_op(a_rows, a_vals, a_starts, a_lens, b_cols_pad, b_vals_pad,
                            f_chunk=f_chunk, tile=tile)
 
 
-def count_bin_op(a: CSR, b: CSR, rows, ell_width: int, row_lo, b_cols_pad,
-                 *, window: int) -> torch.Tensor:
+def count_rows_inputs(rows, row_lo, products, device):
+    """The row count kernel's inputs on ``device``: ``(rows, row_lo,
+    heavy)``, the host arrays ``rows`` and ``row_lo`` as int32 tensors in
+    one upload. On a CUDA device they are in the kernel's launch order,
+    ``heavy`` rows a block each first, from each row's ``products``
+    (``spgemm_dense.count_rows_schedule``); elsewhere in list order."""
+    rows, row_lo = np.asarray(rows), np.asarray(row_lo)
+    heavy = 0
+    device = torch.device(device)
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        _, resident = count_rows_launch_shape_on(index)
+        order, heavy = count_rows_schedule(products, resident)
+        if heavy:
+            rows, row_lo = rows[order], row_lo[order]
+    both = np.empty((2, len(rows)), np.int32)
+    both[0], both[1] = rows, row_lo
+    both = torch.from_numpy(both).to(device)
+    return both[0], both[1], heavy
+
+
+def count_rows_op(a: CSR, b: CSR, rows, row_lo, products,
+                  out: torch.Tensor) -> torch.Tensor:
     """Exact output nnz of the given rows of A @ B, each of whose output
-    columns lies in ``[row_lo, row_lo + window)``: the bin's structure
-    (``ell_width`` >= the rows' A lengths) through the count-only pass.
-    ``row_lo`` is (R, 1) int32 on A's device. Returns (R,) int32."""
-    _, _, a_rows, a_starts, a_lens = prep_bin_structure(a, b, rows,
-                                                        ell_width)
-    return spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols_pad,
-                            window=window)[1]
+    columns lies in ``[row_lo, row_lo + COUNT_ROW_COLUMNS)``, written into
+    ``out`` (m,) int64 at the rows' own indices: one count launch over all of
+    them, reading A's and B's CSR arrays directly. ``rows``, ``row_lo`` and
+    ``products`` (each row's product count, which orders the launch) are
+    host arrays. Returns ``out``."""
+    t_rows, t_lo, heavy = count_rows_inputs(rows, row_lo, products,
+                                            out.device)
+    return spgemm_count_rows(a.indptr, a.indices, b.indptr, b.indices,
+                             t_rows, t_lo, out, heavy=heavy)
 
 
 def prep_bin_structure(a: CSR, b: CSR, rows, ell_width: int):

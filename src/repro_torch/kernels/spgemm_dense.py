@@ -15,9 +15,15 @@ reference's XLA twin ``_dense_bin_xla``, returning the (R, col_tiles*window)
 (``repro/kernels/spgemm_dense.py:148``), the same windows without values:
 ``csrc/spgemm_count.cu`` for CUDA tensors, :func:`count_bin_plain` for CPU
 tensors. It returns each row's exact output nnz and, when asked, the
-per-slot product counts.
+per-slot product counts. :func:`spgemm_count_rows` is the count the symbolic
+prediction runs: the exact output nnz of a list of rows, read straight from
+A's and B's CSR arrays, every listed row in one launch of the same source;
+:func:`count_rows_plain` for CPU tensors.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +43,15 @@ PLAIN_CHUNK_PRODUCTS = 1 << 26
 PLAIN_WINDOW_BYTES = 2 << 30
 # Largest slab width the CUDA kernel takes (its ranks are uint16).
 MAX_CAP = 65535
+# Columns of a row's presence bitmap in the row count kernel: a listed row's
+# output column range is at most this wide.
+COUNT_ROW_COLUMNS = 4096
+# Threads a block of the row count kernel at most (its ``__launch_bounds__``).
+COUNT_MAX_THREADS = 1024
+# Products a warp of the row count kernel loads in one pass (32 lanes, 4
+# loads in flight each): a row of at most this many gains nothing from more
+# warps.
+COUNT_WARP_STAGE = 128
 
 
 def enumerate_products(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals):
@@ -58,8 +73,13 @@ def enumerate_products(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals):
 def row_chunks(a_rows, a_lens):
     """Contiguous row ranges ``[s, e)`` of about ``PLAIN_CHUNK_PRODUCTS``
     products each (a row with more products is a range of its own)."""
-    budget = PLAIN_CHUNK_PRODUCTS
     per_row = torch.where(a_rows >= 0, a_lens, 0).sum(1, dtype=torch.int64)
+    return _chunks_of(per_row)
+
+
+def _chunks_of(per_row):
+    """:func:`row_chunks` given each row's product count."""
+    budget = PLAIN_CHUNK_PRODUCTS
     cum = torch.cumsum(per_row, 0).cpu().numpy()
     s = 0
     while s < len(cum):
@@ -272,3 +292,161 @@ def spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols, *,
 
 
 spgemm_count_bin.launches = 0  # launch count of the CUDA kernel
+
+
+def count_rows_plain(a_indptr, a_indices, b_indptr, b_indices, rows, row_lo,
+                     out):
+    """Plain PyTorch version of :func:`spgemm_count_rows`: each listed row's
+    products enumerated from the two CSRs, the columns in the row's range
+    made unique with a sort, and counted per row."""
+    r = rows.shape[0]
+    dev = out.device
+    w = COUNT_ROW_COLUMNS
+    rows64, lo = rows.long(), row_lo.long()
+    a_ptr, b_ptr = a_indptr.long(), b_indptr.long()
+    a_start = a_ptr[rows64]
+    a_len = a_ptr[rows64 + 1] - a_start
+    n_ent = int(a_len.sum()) if r else 0
+    # the listed rows' A entries, row by row, as a one-slot ELL over B
+    ent_row = torch.repeat_interleave(torch.arange(r, device=dev), a_len,
+                                      output_size=n_ent)
+    ent_end = torch.cumsum(a_len, 0)
+    ent = a_start[ent_row] + torch.arange(n_ent, device=dev) - \
+        (ent_end - a_len)[ent_row]
+    k = a_indices[ent].long()
+    live = (k >= 0) & (k < b_ptr.shape[0] - 1)
+    k = torch.where(live, k, 0)
+    b_start = b_ptr[k]
+    b_len = torch.where(live, b_ptr[k + 1] - b_start, 0)
+    per_row = torch.zeros(r, dtype=torch.int64, device=dev).index_add_(
+        0, ent_row, b_len)
+    nnz = torch.zeros(r, dtype=torch.int64, device=dev)
+    for s, e in _chunks_of(per_row):
+        sl = slice(int(ent_end[s] - a_len[s]), int(ent_end[e - 1]))
+        j, col, _ = enumerate_products(
+            k[sl, None], None, b_start[sl, None], b_len[sl, None], b_indices,
+            None)
+        pos = ent_row[sl][j]
+        local = col - lo[pos]
+        ok = (local >= 0) & (local < w)
+        key = torch.unique((pos[ok] - s) * w + local[ok])
+        nnz[s:e] = torch.bincount(key // w, minlength=e - s)
+    out[rows64] = nnz
+    return out
+
+
+def count_rows_launch_shape(blocks_per_sm):
+    """``(warps, held)`` of the row count kernel: warps a block, and the warps
+    one SM holds at once. The block is the one that lets an SM hold the most
+    warps, the largest such, since a heavy row takes a whole block.
+    ``blocks_per_sm(warps)`` is how many such blocks one SM holds at once, 0
+    when one cannot launch: on the card the CUDA occupancy API's answer for
+    the kernel as built (:func:`count_rows_launch_shape_on`)."""
+    best = None
+    for warps in range(1, COUNT_MAX_THREADS // 32 + 1):
+        held = warps * blocks_per_sm(warps)
+        if held and (best is None or held >= best[1]):
+            best = (warps, held)
+    if best is None:
+        raise ValueError("no block of the row count kernel fits an SM")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def count_rows_launch_shape_on(device_index: int):
+    """``(warps, resident)`` on CUDA device ``device_index``: warps a block
+    (:func:`count_rows_launch_shape`, from the occupancy API) and the warps
+    the whole card holds at once."""
+    fn = _build.library().ocean_count_rows_blocks_per_sm
+
+    def blocks_per_sm(warps):
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            status = fn(warps, ctypes.addressof(out))
+        if status != 0:
+            raise RuntimeError("CUDA occupancy query failed: cudaError "
+                               f"{status}")
+        return out.value
+
+    warps, held = count_rows_launch_shape(blocks_per_sm)
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return warps, held * sms
+
+
+def count_rows_schedule(products, resident: int):
+    """``(order, heavy)``: the launch order of a row list, given each listed
+    row's product count, and how many rows, first in that order, the kernel
+    takes a block each. Those are the rows with more products than a warp's
+    share of the launch (all products over the ``resident`` warps the card
+    holds at once), which a lone warp would still be counting after the rest
+    of the launch is done, and than one pass of a warp
+    (``COUNT_WARP_STAGE``); they go in descending order of products, the
+    others follow in list order."""
+    products = np.asarray(products, np.int64)
+    big = ((products * resident > products.sum())
+           & (products > COUNT_WARP_STAGE))
+    heavy = np.nonzero(big)[0]
+    if not len(heavy):
+        return np.arange(len(products)), 0
+    heavy = heavy[np.argsort(-products[heavy], kind="stable")]
+    return np.concatenate([heavy, np.nonzero(~big)[0]]), len(heavy)
+
+
+def _check_rows(tensors: dict, out, heavy: int) -> None:
+    dev = out.device
+    for name, x in tensors.items():
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, out on {dev}")
+        if x.dtype != torch.int32 or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out.dtype != torch.int64 or out.dim() != 1 or not out.is_contiguous():
+        raise TypeError("out must be a contiguous 1-D int64 tensor")
+    if tensors["a_indptr"].shape[0] != out.shape[0] + 1:
+        raise ValueError(f"out has {out.shape[0]} rows, A "
+                         f"{tensors['a_indptr'].shape[0] - 1}")
+    r = tensors["rows"].shape[0]
+    if tensors["row_lo"].shape[0] != r:
+        raise ValueError("rows and row_lo must have the same length")
+    if not 0 <= heavy <= r or r >= 2**31:
+        raise ValueError(f"heavy {heavy} must be in [0, {r}] and rows "
+                         "fewer than 2**31")
+
+
+def spgemm_count_rows(a_indptr, a_indices, b_indptr, b_indices, rows, row_lo,
+                      out, *, heavy: int = 0):
+    """Exact output nnz of a list of rows of A @ B, from the CSR structures.
+
+    a_indptr/a_indices and b_indptr/b_indices: A's and B's CSR arrays
+    (int32); rows (R,) int32 rows of A; row_lo (R,) int32 the first column
+    of each row's output range, which must be at most ``COUNT_ROW_COLUMNS``
+    wide; out (m,) int64. Sets ``out[rows[i]]`` to the number of distinct
+    columns in ``[row_lo[i], row_lo[i] + COUNT_ROW_COLUMNS)`` among the
+    products of row ``rows[i]`` (its exact nnz) and leaves the other entries
+    as they are. The kernel takes the first ``heavy`` rows a block each and
+    the others a warp each (:func:`count_rows_schedule`); the result does not
+    depend on it. Returns ``out``.
+    """
+    if out.device.type == "cpu":
+        return count_rows_plain(a_indptr, a_indices, b_indptr, b_indices,
+                                rows, row_lo, out)
+    _check_rows(dict(a_indptr=a_indptr, a_indices=a_indices,
+                     b_indptr=b_indptr, b_indices=b_indices, rows=rows,
+                     row_lo=row_lo), out, heavy)
+    r = rows.shape[0]
+    if r == 0:
+        return out
+    dev = out.device
+    warps, _ = count_rows_launch_shape_on(
+        dev.index if dev.index is not None else torch.cuda.current_device())
+    _build.launch(
+        "ocean_count_rows", dev, a_indptr.data_ptr(), a_indices.data_ptr(),
+        b_indptr.data_ptr(), b_indices.data_ptr(), rows.data_ptr(),
+        row_lo.data_ptr(), out.data_ptr(), r, b_indptr.shape[0] - 1, heavy,
+        warps)
+    spgemm_count_rows.launches += 1
+    return out
+
+
+spgemm_count_rows.launches = 0  # launch count of the CUDA kernel

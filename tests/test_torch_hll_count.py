@@ -162,10 +162,10 @@ def test_symbolic_row_nnz_on_rmat_lower_triangle(monkeypatch):
     want = _exact(low, low)
     np.testing.assert_array_equal(
         planner.symbolic_row_nnz(low, low, lo, hi, prod), want)
-    # launches cut into many row chunks change nothing
-    monkeypatch.setattr(planner, "COUNT_LAUNCH_SLOTS", 64)
-    groups = planner.count_groups(lo, hi, prod, np.diff(low.indptr.numpy()))
-    assert max(len(rows) for rows, _, _ in groups) <= 8
+    # the counted rows' products taken in many small chunks change nothing
+    rows = planner.counted_rows(lo, hi, prod)
+    assert len(rows) > 8 and prod[rows].max() > 64
+    monkeypatch.setattr(kdense, "PLAIN_CHUNK_PRODUCTS", 64)
     np.testing.assert_array_equal(
         planner.symbolic_row_nnz(low, low, lo, hi, prod), want)
 
@@ -186,12 +186,12 @@ def test_symbolic_row_nnz_split(case):
         formats.random_uniform_csr(4, n, n, 4.0, device="cpu")
     prod, lo, hi = _stats(a, b)
     live = prod > 0
+    rows = planner.counted_rows(lo, hi, prod)
+    assert (np.diff(rows) > 0).all() and live[rows].all()
+    assert (hi[rows] - lo[rows] + 1 <= kdense.COUNT_ROW_COLUMNS).all()
     counted = np.zeros(a.m, bool)
-    for rows, window, ell in planner.count_groups(
-            lo, hi, prod, np.diff(a.indptr.numpy())):
-        assert (hi[rows] - lo[rows] + 1 <= window).all()
-        assert ell >= np.diff(a.indptr.numpy())[rows].max()
-        counted[rows] = True
+    counted[rows] = True
+    assert (hi - lo + 1 > kdense.COUNT_ROW_COLUMNS)[live & ~counted].all()
     n_counted = int(counted.sum())
     assert {"all_windowed": n_counted == live.sum(),
             "none_windowed": n_counted == 0,
