@@ -18,13 +18,15 @@ Phases, each of which raises on failure:
    set to 0 just before each matrix and read just after, and the kernels
    each matrix's path must launch checked (the dense kernel once per dense
    bin of the plan; the count kernel once per cold symbolic prediction, not
-   at all when warm); C is checked against
+   at all when warm; ``hll_merge`` once per cold call's sampled CR and once
+   per cold estimation prediction, not at all when warm); C is checked
+   against
    ``scipy.sparse``, and one ``torch.sparse`` product of the same matrix is
-   timed as a yardstick; then one more warm call per matrix under
-   torch.profiler gives the device's busy time and idle share;
+   timed as a yardstick;
 2c. the graph path, each call counted the same way: ``triangle_count`` on
    an R-MAT graph of ``2**graph_scale`` vertices, cold and warm on one plan
-   cache (the count kernel once in its cold symbolic prediction; checked
+   cache (the count kernel once in its cold symbolic prediction, and
+   ``hll_merge`` as in phase 2 in every call of this phase; checked
    against
    scipy's ``sum(L .* (L @ L))``); ``k_hop_frontier`` over 3 hops on an
    R-MAT graph 4x larger (``hll_sketch`` + ``hll_merge`` in the hops that
@@ -41,17 +43,25 @@ Phases, each of which raises on failure:
    the same rows (the count kernel on every counted row of the triangle
    and power-law plans, row nnz equal to its plain version and to a
    ``torch.sparse`` product of the same rows, and on banded's W 256 bin
-   with the TPU contract's per-slot counts); then the dense, hash and count
-   kernels on edge cases the paths may not give them (dense: rows past the
+   with the TPU contract's per-slot counts; ``hll_merge`` on banded's whole
+   A and on its sampled-CR rows, ``hll_sketch`` on banded's and power-law's
+   B at m 32 and on banded's at m 64 and 128, sketches one byte a register,
+   with profiler device times (null unless the profiler recorded each
+   kernel once a launch) and bounds at one byte and at four a register,
+   counting the sketch rows the ids select); then the dense, hash, count and HLL kernels on edge cases the
+   paths may not give them (dense: rows past the
    slab's cap, padding, a B row over the stage, a column range wider than
    one shared-memory bitmap; hash: rows that spill or overflow both tables,
    padding, repeated columns, t2048 rows at and past 3,072 columns; count:
    output ranges of 4096 columns, ranges ending at the last column,
    repeated columns, empty rows, rows with more products than a warp's
    stage, each as a row a warp and as a row a block, and a one-row
-   launch);
+   launch; HLL: empty, out-of-range, repeated, 12,000-id and largest-rho
+   rows, one-row launches, seeds 0 and 7, each branch of the estimate);
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
-   against scipy, which also drives the ESC and upper-bound paths.
+   against scipy, which also drives the ESC and upper-bound paths;
+5. one more warm call per phase-2 matrix under torch.profiler gives the
+   device's busy time and idle share.
 
 The line before the last holds ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -480,6 +490,124 @@ def count_edge_cases(kd, ops, dev) -> None:
         f"{[len(a_rows[r]) for r in rows]}; every launch equal to plain")
 
 
+def merges_wanted(rep) -> int:
+    """``hll_merge`` launches a multiply's planning makes: one for the
+    analysis's sampled CR, one for an estimation prediction; none when the
+    plan came from a cache."""
+    if rep.plan_cache_hit:
+        return 0
+    return int(rep.sampled_cr is not None) + int(rep.workflow == "estimation")
+
+
+def max_rho_id(m: int, seed: int) -> int:
+    """A column id whose hash has its top 32 - log2(m) bits zero, so that its
+    rho is the largest, 32 - log2(m) + 1: the murmur3 finaliser inverted
+    from a hash below m."""
+    mask = 0xFFFFFFFF
+    inv = lambda c: pow(c, -1, 1 << 32)  # noqa: E731
+    for target in range(m - 1, -1, -1):
+        u = target ^ (target >> 16)
+        u = (u * inv(0xC2B2AE35)) & mask
+        u ^= (u >> 13) ^ (u >> 26)
+        u = (u * inv(0x85EBCA6B)) & mask
+        u ^= u >> 16
+        x = ((u - seed) * inv(0x9E3779B9)) & mask
+        if x < 2**31:
+            return x
+    raise AssertionError(f"no int32 id of the largest rho at m {m}")
+
+
+def hll_edge_cases(kl, chll, dev) -> None:
+    """``hll_sketch`` and ``hll_merge`` against their plain versions on rows
+    the paths may not give them, at m 32, 64 and 128 and seeds 0 and 7: B
+    rows empty, of one id of the largest rho, of repeated ids, of 12,000
+    ids, 240 short rows, long rows side by side and 3,000 empty rows (the
+    sketch kernel's chunks cut rows, or hold empty rows only); A rows
+    empty, all out of range, repeated, of 12,000 ids (the merge's block
+    path), and rows that merge 1 to 240 B rows, so that the estimate takes
+    each branch (small range; raw with zero registers left; raw with none);
+    and one-row launches of both. Registers exactly, estimates to rtol
+    1e-5."""
+    import torch
+    rng = np.random.default_rng(11)
+
+    def csr(rows):
+        ptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+        idx = np.concatenate([np.asarray(r, np.int64) for r in rows])
+        return (torch.from_numpy(ptr.astype(np.int32)).to(dev),
+                torch.from_numpy(idx.astype(np.int32)).to(dev))
+
+    def same_sketch(label, ptr, idx, m, seed):
+        got = kl.hll_sketch(ptr, idx, m_regs=m, seed=seed)
+        want = chll.sketch_registers_impl(ptr, idx, m, ptr.shape[0] - 1,
+                                          seed)
+        torch.cuda.synchronize()
+        if got.dtype != torch.uint8 or not torch.equal(got.int(), want):
+            raise AssertionError(f"hll_sketch edge case {label}: registers "
+                                 "differ from plain")
+        return got
+
+    def same_merge(label, ptr, idx, sk):
+        got_m, got_e = kl.hll_merge(ptr, idx, sk)
+        want_m, want_e = kl.hll_merge_plain(ptr, idx, sk)
+        torch.cuda.synchronize()
+        if not torch.equal(got_m, want_m):
+            raise AssertionError(f"hll_merge edge case {label}: registers "
+                                 "differ from plain")
+        close_enough(got_e, want_e, rtol=1e-5, atol=0.0)
+        return want_m, got_e
+
+    branches = set()
+    for m in (32, 64, 128):
+        p = m.bit_length() - 1
+        for seed in (0, 7):
+            top = max_rho_id(m, seed)
+            b_rows = [[], [top], [5, 5, 5, 9, 9, 5],
+                      rng.choice(1 << 30, 12000, replace=False)]
+            b_rows += [rng.choice(1 << 30, k, replace=False)
+                       for k in rng.integers(1, 60, 240)]
+            # long rows side by side, then 3,000 empty rows: chunks cut
+            # rows, hold no ids, or hold only empty rows
+            b_rows += [rng.choice(1 << 30, k, replace=False)
+                       for k in (5000, 3000, 2047, 1, 2049)]
+            b_rows += [[]] * 3000 + [[7]]
+            nb = len(b_rows)
+            b_ptr, b_idx = csr(b_rows)
+            regs = same_sketch(f"m {m} seed {seed}", b_ptr, b_idx, m, seed)
+            if int(regs[1].max()) != 33 - p or int(regs[1].sum()) != 33 - p:
+                raise AssertionError(f"hll_sketch m {m} seed {seed}: id "
+                                     f"{top} gives {regs[1].tolist()}, not "
+                                     f"one register of {33 - p}")
+            one = same_sketch(f"m {m} one row", *csr([b_rows[3]]), m, seed)
+            if not torch.equal(one[0], regs[3]):
+                raise AssertionError("hll_sketch: a one-row launch differs")
+            sk = torch.zeros((nb + 1, m), dtype=torch.uint8, device=dev)
+            sk[:nb] = regs
+            a_rows = [[], [nb, nb + 7, 1 << 30], [1], [2, 2, 2, 0, 2],
+                      rng.integers(0, nb + 8, 12000), [3]]
+            a_rows += [4 + rng.choice(240, j, replace=False)
+                       for j in range(1, 240, 2)]
+            merged, est = same_merge(f"m {m} seed {seed}", *csr(a_rows), sk)
+            if bool((merged[:2] != 0).any()) or float(est[:2].abs().max()):
+                raise AssertionError("hll_merge: empty or out-of-range rows "
+                                     "are not zero")
+            one_m, one_e = same_merge(f"m {m} one row", *csr([a_rows[4]]),
+                                      sk)
+            if not torch.equal(one_m[0], merged[4]):
+                raise AssertionError("hll_merge: a one-row launch differs")
+            zeros = (merged == 0).sum(1).float()
+            small = m * torch.log(m / zeros.clamp(min=1))
+            for z, e_s in zip(zeros.tolist(), small.tolist()):
+                branches.add("small" if z > 0 and e_s <= 2.5 * m
+                             else "raw, zeros left" if z > 0 else "raw")
+    if len(branches) != 3:
+        raise AssertionError(f"hll edge cases reach only {branches}")
+    log("hll edge cases: sketches and merges equal to plain at m 32/64/128,"
+        " seeds 0 and 7 (empty, out-of-range, repeated, 12,000-id and "
+        "largest-rho rows, one-row launches); estimate branches "
+        f"{sorted(branches)}")
+
+
 def profile_call(name, a, cache, workflow) -> None:
     """Device busy share of one warm ``ocean_spgemm`` call, and the device
     activities (kernels, copies) that took the most time, from
@@ -539,6 +667,7 @@ def main() -> int:
     from repro_torch.kernels import spgemm_dense as kd
     from repro_torch.kernels import spgemm_hash as kh
     from repro_torch.obs import trace
+    from repro_torch.tools.time_hll import device_ms
 
     # ---------------- 1. card + build ----------------
     done = phase("1. card and kernel build")
@@ -646,6 +775,19 @@ def main() -> int:
             raise AssertionError(f"{name}: count launches {got}, want {want}"
                                  " (one per cold symbolic prediction)")
         log(f"{name}: count kernel launches per call {json.dumps(got)}")
+    # hll_merge: one launch per cold call's sampled CR and one per cold
+    # estimation prediction, none warm
+    for name, outs in results.items():
+        got, want, sketch = {}, {}, {}
+        for call, (_, rep, _) in zip(("cold", "warm"), outs):
+            got[call] = call_counts[name, call]["hll_merge"]
+            want[call] = merges_wanted(rep)
+            sketch[call] = call_counts[name, call]["hll_sketch"]
+        if got != want:
+            raise AssertionError(f"{name}: hll_merge launches {got}, want "
+                                 f"{want} (sampled CR + estimation)")
+        log(f"{name}: hll_merge launches per call {json.dumps(got)} (sampled"
+            f" CR + estimation), hll_sketch {json.dumps(sketch)}")
     for name, a in mats:
         log(f"{name}: hash bins (table: rows) " + json.dumps(
             {hb.table: len(hb.rows) for hb in plan_of(name, a).hash}))
@@ -673,11 +815,6 @@ def main() -> int:
                                  f"{lib_nnz} entries, C {c1.nnz}")
         log(f"{name}: library torch.sparse CSR @ CSR {lib_ms:.1f} ms "
             f"(median of 3, CUDA events), nnz {lib_nnz} as C")
-    done()
-
-    done = phase("2b. torch.profiler over one more warm call per matrix")
-    for name, a in mats:
-        profile_call(name, a, caches[name], workflow)
     done()
 
     # ---------------- 2c. graph path ----------------
@@ -709,6 +846,10 @@ def main() -> int:
         launched = {k: v - before[k]
                     for k, v in read_counts(kd, kh, kl).items()}
         tri_count_launches[call] = launched["count"]
+        if launched["hll_merge"] != merges_wanted(rep):
+            raise AssertionError(f"triangles {call}: hll_merge launches "
+                                 f"{launched['hll_merge']}, want "
+                                 f"{merges_wanted(rep)}")
         log_call(f"triangles {call} (L nnz {low.nnz})", rep, wall, launched,
                  torch.cuda.max_memory_allocated() / 2**30)
         log(f"  triangles {tri}")
@@ -750,7 +891,7 @@ def main() -> int:
     reset_counts(kd, kh, kl)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    runner = RecordingRunner(adj_k)
+    runner = runner_k = RecordingRunner(adj_k)
     fronts, kres = graph.k_hop_frontier(adj_k, seeds, 3, runner=runner)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -764,6 +905,10 @@ def main() -> int:
             zip(fronts, runner.steps), 1):
         log_call(f"k-hop hop {hop} (frontier {len(f)})", rep, None,
                  launched)
+        if launched["hll_merge"] != merges_wanted(rep):
+            raise AssertionError(f"k-hop hop {hop}: hll_merge launches "
+                                 f"{launched['hll_merge']}, want "
+                                 f"{merges_wanted(rep)}")
         cur = (a_k.T @ cur != 0).astype(np.float64)
         if not np.array_equal(f, np.nonzero(cur)[0]):
             raise AssertionError(f"k-hop hop {hop}: vertex set differs "
@@ -829,6 +974,10 @@ def main() -> int:
         err = float(np.abs(ours.data[common] - tv).max()) if len(tv) else 0.0
         mcl_err = max(mcl_err, err)
         log_call(f"MCL iteration {it}", rep, None, launched)
+        if launched["hll_merge"] != merges_wanted(rep):
+            raise AssertionError(f"MCL iteration {it}: hll_merge launches "
+                                 f"{launched['hll_merge']}, want "
+                                 f"{merges_wanted(rep)}")
         log(f"  nnz {ours.nnz} as scipy's step but {len(flips)} entries; "
             f"{int(near.sum())} entries within {near_tol} of the threshold; "
             f"max abs diff {err:.3g}")
@@ -858,6 +1007,9 @@ def main() -> int:
                              "launches, want 1 (its symbolic prediction)")
     log(f"count kernel launches: triangles {json.dumps(tri_count_launches)}"
         f", MCL by iteration {mcl_counts}")
+    log("hll_merge launches (sampled CR + estimation, checked per call): "
+        f"k-hop by hop {[la['hll_merge'] for *_, la in runner_k.steps]}, "
+        f"MCL by iteration {[la['hll_merge'] for *_, la in runner.steps]}")
     counts = {k: sum(pc[k] for pc in path_counts.values())
               for k in read_counts(kd, kh, kl)}
     by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
@@ -993,67 +1145,113 @@ def main() -> int:
         **{k: v for k, v in top.items() if k != "bin"},
         "bins": hash_bins})
 
-    # hll_merge: the estimation workflow's prediction merge over all of A
-    sk = torch.cat([plan_b.b_sketches,
-                    torch.zeros((1, plan_b.b_sketches.shape[1]),
-                                dtype=torch.int32, device=dev)]).contiguous()
-    ind = a_band.indices[: a_band.nnz]
-    merged, est = kl.hll_merge(a_band.indptr, ind, sk)
-    pmerged, pest = kl.hll_merge_plain(a_band.indptr, ind, sk)
-    torch.cuda.synchronize()
-    if not torch.equal(merged, pmerged):
-        raise AssertionError("hll_merge: registers differ from plain")
-    err = close_enough(est, pest, rtol=1e-5, atol=0.0)
-    ms = time_cuda(lambda: kl.hll_merge(a_band.indptr, ind, sk), KERNEL_RUNS)
-    plain_ms = time_cuda(lambda: kl.hll_merge_plain(a_band.indptr, ind, sk),
-                         3)
-    ra, m = a_band.m, sk.shape[1]
-    by = (ra + 1) * 4 + a_band.nnz * 4 + sk.numel() * 4 + ra * m * 4 + ra * 4
-    b_ms, b_by = bound(by, float(a_band.nnz) * m, INT32_OPS_PER_S)
-    log(f"hll_merge: RA {ra} nnz {a_band.nnz} m {m} max_abs_err {err:.3g} "
-        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {b_ms:.3f} ms "
-        f"({b_by})")
+    # hll_merge: the estimation prediction's merge over all of banded's A,
+    # and the analysis's sampled-CR merge, with the sketches the plan holds
+    # (B's rows and the zero sentinel row, one byte a register)
+    sk = plan_b.b_sketches
+    if sk.dtype != torch.uint8 or bool((sk[-1] != 0).any()):
+        raise AssertionError(f"banded plan sketches: {sk.dtype}, sentinel "
+                             "row not zero")
+    try:
+        kl.hll_merge(a_band.indptr, a_band.indices[: a_band.nnz], sk.int())
+        raise AssertionError("hll_merge took int32 sketches on the card")
+    except TypeError:
+        pass
+    rows_s = analysis._pick_sample_rows(a_band.m, OceanConfig())
+    sub_s = planner.gather_rows(a_band, rows_s)
+
+    def merge_case(label, a):
+        ind = a.indices[: a.nnz]
+        merged, est = kl.hll_merge(a.indptr, ind, sk)
+        pmerged, pest = kl.hll_merge_plain(a.indptr, ind, sk)
+        torch.cuda.synchronize()
+        if merged.dtype != torch.uint8 or not torch.equal(merged, pmerged):
+            raise AssertionError(f"hll_merge {label}: registers differ from "
+                                 "plain")
+        err = close_enough(est, pest, rtol=1e-5, atol=0.0)
+        del merged, est, pmerged, pest
+        ms = time_cuda(lambda: kl.hll_merge(a.indptr, ind, sk), KERNEL_RUNS)
+        dev_ms, events = device_ms(lambda: kl.hll_merge(a.indptr, ind, sk),
+                                   KERNEL_RUNS, "hll_merge_kernel")
+        plain_ms = time_cuda(lambda: kl.hll_merge_plain(a.indptr, ind, sk),
+                             3)
+        ra, nb1, m = a.m, sk.shape[0], sk.shape[1]
+        # the sketch rows A's ids select (ids outside [0, NB+1) read the
+        # sentinel row), each read once
+        picked = int(torch.unique(torch.where(
+            (ind >= 0) & (ind < nb1), ind, nb1 - 1)).numel())
+        # A's offsets and ids, those sketch rows, merged rows and estimates
+        by = (ra + 1) * 4 + a.nnz * 4 + picked * m + ra * m + ra * 4
+        by32 = by + 3 * (picked * m + ra * m)  # with int32 registers
+        b_ms, b_by = bound(by, float(a.nnz) * m, INT32_OPS_PER_S)
+        b32_ms, _ = bound(by32, float(a.nnz) * m, INT32_OPS_PER_S)
+        log(f"hll_merge {label}: RA {ra} ids {a.nnz} ({picked} sketch rows) "
+            f"m {m} max_abs_err {err:.3g} kernel {ms:.4f} ms device {dev_ms} "
+            f"ms (profiler events {json.dumps(events)}) plain "
+            f"{plain_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}, one byte a "
+            f"register; {b32_ms:.4f} ms with int32 registers)")
+        return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_int32_ms": b32_ms,
+                "shape": {"RA": ra, "ids": a.nnz, "sketch_rows": picked,
+                          "m": m, "A": label}}
+
+    mg_band = merge_case("banded", a_band)
+    mg_sample = merge_case("banded sampled CR", sub_s)
     kernels.append({
         "name": "hll_merge", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hll_merge.cu",
         "replaces": "src/repro/kernels/hll.py:108",
         "launches": counts["hll_merge"],
-        "launches_by_path": by_path["hll_merge"], "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": {"RA": ra, "nnz": a_band.nnz, "m": m}})
+        "launches_by_path": by_path["hll_merge"], **mg_band,
+        "library_ms": None, "also": mg_sample})
 
-    # hll_sketch: B's sketches, as the estimation analysis builds them
+    # hll_sketch: B's sketches, as the analysis builds them
     def sketch_case(label, b, m):
         ind = b.indices[: b.nnz]
         regs = kl.hll_sketch(b.indptr, ind, m_regs=m)
         pregs = chll.sketch_registers_impl(b.indptr, ind, m, b.m)
         torch.cuda.synchronize()
-        if not torch.equal(regs, pregs):
-            raise AssertionError(f"hll_sketch {label}: registers differ "
-                                 "from plain")
+        if regs.dtype != torch.uint8 or not torch.equal(regs.int(), pregs):
+            raise AssertionError(f"hll_sketch {label} m {m}: registers "
+                                 "differ from plain")
+        del regs, pregs
         ms = time_cuda(lambda: kl.hll_sketch(b.indptr, ind, m_regs=m),
                        KERNEL_RUNS)
+        # both kernels of a launch: the chunks' bounds and the sketch
+        dev_ms, events = device_ms(
+            lambda: kl.hll_sketch(b.indptr, ind, m_regs=m), KERNEL_RUNS,
+            "hll_sketch")
         plain_ms = time_cuda(
             lambda: chll.sketch_registers_impl(b.indptr, ind, m, b.m), 3)
-        by = b.nnz * 4 + (b.m + 1) * 4 + b.m * m * 4
-        b_ms, b_by = bound(by, 12.0 * b.nnz, INT32_OPS_PER_S)
-        log(f"hll_sketch {label}: R {b.m} ids {b.nnz} m {m} exact; kernel "
-            f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {b_ms:.3f} ms "
-            f"({b_by})")
-        return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "shape": {"R": b.m, "ids": b.nnz, "m": m, "B": label}}
+        by = b.nnz * 4 + (b.m + 1) * 4 + b.m * m
+        b_ms, b_by = bound(by, 15.0 * b.nnz, INT32_OPS_PER_S)
+        b32_ms, _ = bound(by + 3 * b.m * m, 15.0 * b.nnz, INT32_OPS_PER_S)
+        threads = kl.sketch_launch_shape_on(torch.cuda.current_device(), m)
+        chunks = kl.sketch_chunks(b.nnz, b.m, threads, m)
+        log(f"hll_sketch {label}: R {b.m} ids {b.nnz} m {m} exact; "
+            f"{chunks} chunks of {threads} threads; kernel "
+            f"{ms:.4f} ms device {dev_ms} ms (profiler events "
+            f"{json.dumps(events)}) plain {plain_ms:.3f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}, one byte a register; {b32_ms:.4f} ms "
+            "with int32 registers)")
+        return {"max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_int32_ms": b32_ms,
+                "shape": {"R": b.m, "ids": b.nnz, "m": m, "B": label,
+                          "threads": threads, "chunks": chunks}}
 
     sk_band = sketch_case("banded", a_band, plan_b.m_regs)
-    sk_pl = sketch_case("powerlaw", a_pl, 32)
+    sk_more = [sketch_case("powerlaw", a_pl, 32)]
+    sk_more += [sketch_case("banded", a_band, m) for m in (64, 128)]
+    hll_edge_cases(kl, chll, dev)
     kernels.append({
         "name": "hll_sketch", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hll_sketch.cu",
         "replaces": "src/repro/kernels/hll.py:64",
         "launches": counts["hll_sketch"],
         "launches_by_path": by_path["hll_sketch"], **sk_band,
-        "library_ms": None, "also": sk_pl})
+        "library_ms": None, "also": sk_more})
 
     # the count kernel: every counted row of the triangle and power-law
     # plans in one launch each, as their symbolic predictions make it; then
@@ -1169,6 +1367,14 @@ def main() -> int:
             err = check_against_scipy(c, to_scipy(a), f"suite {name}")
         log(f"suite {name}: {rep.workflow} bins {json.dumps(rep.bins)} "
             f"max abs diff {err:.3g}")
+    done()
+
+    # ---------------- 5. device busy share ----------------
+    # last: phase 3 reads device times with short profiler sessions, which
+    # recorded only some of their launches when they came after these
+    done = phase("5. torch.profiler over one more warm call per matrix")
+    for name, a in mats:
+        profile_call(name, a, caches[name], workflow)
     done()
 
     log(f"{smi}")

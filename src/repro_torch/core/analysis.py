@@ -17,9 +17,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels import hll as khll
 from ..kernels import ops as kops
 from ..obs import trace
-from . import hll
 from .dispatch import (Launch, host_arrays, mark_in_flight,
                        overlap_host_work, resolve_devices,
                        start_async_host_copies)
@@ -121,7 +121,8 @@ class AnalysisResult:
     er: float                        # Input Expansion Ratio
     nproducts_avg: float
     m_regs: int
-    b_sketches: Optional[torch.Tensor]  # (nB, m_regs) int32 (None if skipped)
+    # (nB + 1, m_regs) uint8, B's rows and the zero sentinel (None if skipped)
+    b_sketches: Optional[torch.Tensor]
     sampled_cr: Optional[float]      # Sampled Output Compression Ratio
     cr_mean: Optional[float]
     cr_std: Optional[float]
@@ -151,13 +152,14 @@ def _pick_sample_rows(num_rows: int, cfg: OceanConfig) -> np.ndarray:
 
 def sketches_for(b: CSR, m_regs: int, seed: int,
                  sketch_cache: Optional[Dict] = None) -> torch.Tensor:
-    """B-row sketches (nB, m_regs), built by ``kops.build_sketches_op`` (the
-    ``hll_sketch`` kernel on a GPU) and reused from ``sketch_cache`` (keyed
-    by ``(m_regs, seed)``) when present."""
+    """B-row sketches with the merge's zero sentinel row, (nB + 1, m_regs)
+    uint8, built by ``kops.build_sketches_op`` (the ``hll_sketch`` kernel on
+    a GPU) and reused from ``sketch_cache`` (keyed by ``(m_regs, seed)``)
+    when present."""
     key = (m_regs, seed)
     if sketch_cache is not None and key in sketch_cache:
         return sketch_cache[key]
-    sk = kops.build_sketches_op(b, m_regs, seed)[: b.m]
+    sk = kops.build_sketches_op(b, m_regs, seed)
     if sketch_cache is not None:
         sketch_cache[key] = sk
     return sk
@@ -254,13 +256,11 @@ class AnalysisPipeline:
                 overlap_host_work(in_flight, _sample_prework)
             wave2_overlap_seconds += est_s
             wave2_overlapped = wave2_overlapped or est_pend
-            dev = a.device
-            sub_ptr = torch.from_numpy(new_ptr).to(dev)
-            sub_idx = a.indices[torch.from_numpy(src).to(dev)]
-            merged = hll.merge_sketches(sub_ptr, sub_idx, sketches,
-                                        num_rows_a=len(sample_rows))
-            est = hll.estimate_cardinality(merged, clip_max=b.n)
-            est = np.maximum(host(est), 1.0)
+            # the sample rows' column ids alone: the merge reads no values
+            sub_ptr = torch.from_numpy(new_ptr.astype(np.int32)).to(a.device)
+            sub_ids = a.indices[torch.from_numpy(src).to(a.device)]
+            _, est = khll.hll_merge(sub_ptr, sub_ids, sketches)
+            est = np.maximum(host(torch.clamp(est, 0.0, float(b.n))), 1.0)
             prods = np.asarray(prod_row)[sample_rows].astype(np.float64)
             mask = prods > 0
             if mask.any():

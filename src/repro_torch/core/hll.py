@@ -3,8 +3,10 @@
 PyTorch port of ``repro.core.hll``. Torch has no unsigned 32-bit
 arithmetic and no count-leading-zeros, so :func:`hash32` works in int64
 with the product split into 16-bit halves (no step can overflow) and
-:func:`_rho` takes an exact integer bit length. Registers are int32 and
-equal to the reference's bit for bit.
+:func:`_rho` takes an exact integer bit length. Registers here are int32 and
+equal to the reference's bit for bit; the kernel wrappers
+(``kernels.hll``) hand them on as one byte each, and
+:func:`estimate_cardinality` takes either.
 """
 from __future__ import annotations
 
@@ -123,7 +125,8 @@ def merge_sketches(a_indptr, a_indices, b_sketches, *,
 
 def estimate_cardinality(sketches: torch.Tensor,
                          clip_max: Optional[int] = None) -> torch.Tensor:
-    """HLL estimate per sketch row with small-range correction (f32)."""
+    """HLL estimate per sketch row with small-range correction (f32), from
+    int32 or uint8 registers."""
     m = sketches.shape[-1]
     regs = sketches.float()
     inv_sum = torch.exp2(-regs).sum(-1)

@@ -351,11 +351,8 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         if sketches is None:
             sketches = sketches_for(b, analysis.m_regs, cfg.seed,
                                     sketch_cache)
-        # one all-zero sentinel row: the HLL identity, the merge's pad target
-        sk = torch.cat([sketches, torch.zeros((1, sketches.shape[1]),
-                                              dtype=torch.int32,
-                                              device=sketches.device)])
-        est = sharded_merge_estimate(a, sk, clip_max=b.n)
+        # the sketches end in the all-zero sentinel row, the merge's pad
+        est = sharded_merge_estimate(a, sketches, clip_max=b.n)
         pred = np.maximum(np.asarray(est, np.float64), 1.0)
         pred = np.where(products > 0, pred, 0.0)
         pred = np.minimum(pred, products)  # distinct count <= products

@@ -32,6 +32,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 U = ctypes.c_uint
+LL = ctypes.c_longlong
 
 # argtypes of every C entry point (pointers and the stream as c_void_p,
 # so ctypes never truncates them to 32 bits)
@@ -40,7 +41,8 @@ SIGNATURES = {
     "ocean_hash_slab": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     "ocean_hash_blocks_per_sm": (I, I, I, P),
     "ocean_hll_merge": (P, P, P, P, P, I, I, I, F, P),
-    "ocean_hll_sketch": (P, P, P, I, I, U, P),
+    "ocean_hll_sketch": (P, P, P, P, I, LL, I, I, U, I, P),
+    "ocean_hll_sketch_blocks_per_sm": (I, I, P),
     "ocean_count_bin": (P, P, P, P, P, P, P, I, I, I, I, P),
     "ocean_count_rows": (P, P, P, P, P, P, P, I, I, I, I, P),
     "ocean_count_rows_blocks_per_sm": (I, P),

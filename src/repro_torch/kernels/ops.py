@@ -30,18 +30,21 @@ F_CHUNK = 128
 
 
 def build_sketches_op(b: CSR, m_regs: int, seed: int = 0) -> torch.Tensor:
-    """Per-row sketches of B: (b.m + 1, m_regs) int32, the last row the
-    all-zero sentinel that the merge treats as padding."""
-    regs = hll_sketch(b.indptr, b.indices, m_regs=m_regs, seed=seed)
-    return torch.cat([regs, torch.zeros((1, m_regs), dtype=torch.int32,
-                                        device=regs.device)])
+    """Per-row sketches of B: (b.m + 1, m_regs) uint8, the last row the
+    all-zero sentinel that the merge treats as padding. The sketch writes
+    B's rows straight into that buffer."""
+    buf = torch.empty((b.m + 1, m_regs), dtype=torch.uint8, device=b.device)
+    buf[b.m].zero_()
+    hll_sketch(b.indptr, b.indices[: b.nnz], m_regs=m_regs, seed=seed,
+               out=buf[: b.m])
+    return buf
 
 
 def merge_estimate_op(a: CSR, sketches_with_sentinel: torch.Tensor,
                       clip_max: int | None = None):
     """Merged C-row sketches + estimates, clipped to ``clip_max``."""
     merged, est = hll_merge(a.indptr, a.indices[: a.nnz],
-                            sketches_with_sentinel.contiguous())
+                            sketches_with_sentinel)
     if clip_max is not None:
         est = torch.clamp(est, 0.0, float(clip_max))
     return merged, est

@@ -88,11 +88,11 @@ def test_build_sketches_op_matches_reference(name):
     port = dict(formats.make_suite(1, device="cpu"))[name]
     want = rops.build_sketches_op(ref, 32)
     got = ops.build_sketches_op(port, 32)
-    assert got.shape == (port.m + 1, 32)
+    assert got.shape == (port.m + 1, 32) and got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got[-1] == 0).all()
-    sk = analysis.sketches_for(port, 32, 0)
-    assert torch.equal(sk, got[:-1])
+    sk = analysis.sketches_for(port, 32, 0)  # the sentinel row included
+    assert torch.equal(sk, got)
 
 
 def _count_bin(seed, r, e, n_b, n_cols):

@@ -189,7 +189,8 @@ def test_hll_merge_plain_matches_reference_and_pallas(m_regs, ra, k, nb):
     c_merged = rhll.merge_sketches(jnp.asarray(indptr), jnp.asarray(indices),
                                    jnp.asarray(sk[:-1]), num_rows_a=ra)
     c_est = rhll.estimate_cardinality(c_merged)
-    merged, est = khll.hll_merge(*_t(indptr, indices, sk))
+    merged, est = khll.hll_merge(*_t(indptr, indices, sk.astype(np.uint8)))
+    assert merged.dtype == torch.uint8
     for ref_m, ref_e in ((p_merged, p_est), (c_merged, c_est)):
         np.testing.assert_array_equal(merged.numpy(), np.asarray(ref_m))
         np.testing.assert_allclose(est.numpy(), np.asarray(ref_e),
@@ -203,8 +204,8 @@ def test_merge_estimate_op_clips_like_reference():
     want_m, want_e = rops.merge_estimate_op(a, jnp.asarray(sk), clip_max=9)
     from repro_torch.core import formats
     pa = formats.from_numpy_csr(*a.to_scipy_like(), a.shape, device="cpu")
-    got_m, got_e = ops.merge_estimate_op(pa, torch.from_numpy(sk),
-                                         clip_max=9)
+    got_m, got_e = ops.merge_estimate_op(
+        pa, torch.from_numpy(sk.astype(np.uint8)), clip_max=9)
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     np.testing.assert_allclose(got_e.numpy(), np.asarray(want_e), rtol=1e-5)
     assert float(got_e.max()) <= 9.0
