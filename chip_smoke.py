@@ -4,7 +4,8 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # 2**20-row matrices (default)
-    python3 chip_smoke.py --log2-rows 14 --graph-scale 12   # a quick run
+    # a quick run:
+    python3 chip_smoke.py --log2-rows 14 --graph-scale 12 --serve-log2-rows 14
 
 Phases, each of which raises on failure:
 
@@ -35,10 +36,27 @@ Phases, each of which raises on failure:
    count kernel once in the first iteration; each iteration checked
    against a scipy expand -> inflate -> normalize ->
    prune step from the same input, the labels against the scipy twin's);
+2d. the SpGEMM serving tier (``repro_torch.serving``) at
+   ``2**serve_log2_rows`` rows: 3 tenants x 4 requests against one B
+   (uniform, banded and power-law patterns interleaved), burst into a
+   ``SpGEMMPool`` (2 workers, micro-batches of up to 8, the plan warmer
+   run over the queue before the workers start), every kernel's launch
+   count set to 0 just before the burst and read just after; each C
+   bit-identical to the same product served alone (uncached, serial
+   executor), each distinct product as scipy, 9 plans warmed, 12 plan
+   hits, the dense and hash kernels once a dense or hash bin and
+   ``hll_merge`` as the warmed plans need; a small pool sheds 8 of the 12; k-hop chains (3
+   hops, the phase-2c triangle graph) through ``SpGEMMService.run_chain``
+   for two tenants, frontiers as scipy, reuse on a tenant's repeat; the
+   same 12 requests through a serial service as the yardstick; one more
+   burst under a tracer, written to ``chiprun_out/serving_trace.json`` and
+   validated;
 3. kernels against their plain PyTorch versions, on the card, on real bins
-   of the phase-2 and phase-2c paths at the shapes those paths launch them
+   of the phase-2, 2c and 2d paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
-   triangle plan's widest), with times from CUDA events, each kernel's
+   triangle plan's widest; the dense kernel on the largest bin of each
+   rung, and the hash kernel on the largest bin, of each serving pattern's
+   plan against the serving B), with times from CUDA events, each kernel's
    bound and, for the dense and hash bins, one ``torch.sparse`` product of
    the same rows (the count kernel on every counted row of the triangle
    and power-law plans, row nnz equal to its plain version and to a
@@ -63,8 +81,9 @@ Phases, each of which raises on failure:
 5. one more warm call per phase-2 matrix under torch.profiler gives the
    device's busy time and idle share.
 
-The line before the last holds ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
+Before the last line come ``{"serving": {...}}`` (phase 2d's numbers) and
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device the script exits
 with a non-zero code and prints no result.
 """
 from __future__ import annotations
@@ -159,8 +178,10 @@ def to_scipy(c):
     return sp.csr_matrix((values, indices, indptr), shape=c.shape)
 
 
-def check_against_scipy(c, a_sp, label: str) -> float:
-    ref = a_sp @ a_sp
+def check_against_scipy(c, a_sp, label: str, b_sp=None) -> float:
+    """C of ``A @ A`` (or ``A @ B``) against scipy's product; returns the
+    max abs difference."""
+    ref = a_sp @ (a_sp if b_sp is None else b_sp)
     ref.sort_indices()
     ours = to_scipy(c)
     if not ours.has_sorted_indices:
@@ -306,18 +327,19 @@ def check_hash_slab(label, got, want, width):
     return close_enough(got[1][fits], want[1][fits]), int((~fits).sum())
 
 
-def library_rows(a, rows):
+def library_rows(a, rows, b=None):
     """Median ms of one ``torch.sparse`` CSR @ CSR call of A's ``rows`` by
-    A (cuSPARSE), the library's time for a bin's function, and its nnz per
-    row (int64, in the order of ``rows``)."""
+    B (A when ``b`` is None; cuSPARSE), the library's time for a bin's
+    function, and its nnz per row (int64, in the order of ``rows``)."""
     import torch
     from repro_torch.core import planner
+    b = a if b is None else b
     sub = planner.gather_rows(a, rows)
     ta = torch.sparse_csr_tensor(sub.indptr, sub.indices[: sub.nnz],
                                  sub.values[: sub.nnz], size=sub.shape,
                                  check_invariants=False)
-    tb = torch.sparse_csr_tensor(a.indptr, a.indices[: a.nnz],
-                                 a.values[: a.nnz], size=a.shape,
+    tb = torch.sparse_csr_tensor(b.indptr, b.indices[: b.nnz],
+                                 b.values[: b.nnz], size=b.shape,
                                  check_invariants=False)
     lib_rows = torch.diff((ta @ tb).crow_indices()).long()
     return time_cuda(lambda: ta @ tb, 3), lib_rows
@@ -643,6 +665,284 @@ def profile_call(name, a, cache, workflow) -> None:
         log(f"  {us / 1e3:9.2f} ms  x{cnt:<5d} {key[:90]}")
 
 
+TENANTS = ("acme", "globex", "initech")
+POOL_SPANS = {"pool.warm", "pool.batch_assembly", "pool.batch",
+              "pool.queue_wait"}
+SERVE_TIMEOUT = 600.0  # seconds any one wait of phase 2d may take
+
+
+def same_csr(x, y) -> bool:
+    """Two CSRs equal bit for bit (indptr, indices, values on the host)."""
+    from repro_torch.core import formats
+    return all(np.array_equal(u, v) for u, v in zip(formats.to_numpy(x),
+                                                   formats.to_numpy(y)))
+
+
+def serving_phase(args, dev, adj, kd, kh, kl, path_counts):
+    """Phase 2d: the SpGEMM serving tier on the card. Returns the fields of
+    the ``{"serving": ...}`` line, and for phase 3 the burst's B and each
+    pattern's ``(A, plan)`` by name (the plans the workers ran)."""
+    import torch
+    from repro_torch import graph, serving
+    from repro_torch.core import formats, planner, workflow
+    from repro_torch.core.analysis import OceanConfig
+    from repro_torch.obs import trace
+    from repro_torch.tools import trace_export
+
+    sn = 1 << args.serve_log2_rows
+    t0 = time.perf_counter()
+    b = formats.random_uniform_csr(900, sn, sn, 5.0, device=dev)
+    pats = [formats.random_uniform_csr(901, sn, sn, 6.0, device=dev),
+            formats.banded_csr(902, sn, sn, 24, device=dev),
+            formats.powerlaw_csr(903, sn, sn, 6.0, device=dev)]
+    names = ["uniform", "banded", "powerlaw"]
+    log(f"generated in {time.perf_counter() - t0:.1f} s: B nnz {b.nnz}, "
+        + ", ".join(f"{k} nnz {a.nnz}" for k, a in zip(names, pats)))
+    # 3 tenants x 4 requests, interleaved, all against the one B object
+    reqs = [(t, (ti + i) % 3) for i in range(4)
+            for ti, t in enumerate(TENANTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    formats.structure_hash(b)
+    hash_s = time.perf_counter() - t0
+    log(f"structure_hash(B): {hash_s:.4f} s (host copy of the pattern; the "
+        "service takes it for the sketch bucket on every request)")
+
+    # each distinct product served alone, uncached, serial executor: what
+    # every pooled C must equal bit for bit
+    refs, ref_walls = [], []
+    b_sp = to_scipy(b)
+    for name, a in zip(names, pats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, rep = workflow.ocean_spgemm(a, b, cache=False, executor="serial")
+        torch.cuda.synchronize()
+        ref_walls.append(time.perf_counter() - t0)
+        log_call(f"serial {name} @ B", rep, ref_walls[-1], None)
+        t0 = time.perf_counter()
+        err = check_against_scipy(c, to_scipy(a), f"serving {name}", b_sp)
+        log(f"serving {name}: C matches scipy (max abs diff {err:.3g}, check"
+            f" {time.perf_counter() - t0:.1f} s)")
+        refs.append(c)
+    del b_sp
+
+    def submit_all(pool):
+        futs, shed = [], 0
+        for t, p in reqs:
+            try:
+                futs.append((t, p, pool.submit(pats[p], b, tenant=t)))
+            except serving.AdmissionError:
+                shed += 1
+        return futs, shed
+
+    def collect(futs, label):
+        """Every future's result, each C bit-identical to its serial
+        product; a future that raises fails the phase."""
+        for t, p, f in futs:
+            if not same_csr(f.result(SERVE_TIMEOUT)[0], refs[p]):
+                raise AssertionError(f"{label}: {t}'s {names[p]} C differs "
+                                     "from the serial uncached call")
+
+    # the burst: deferred start, all 12 queued, the warmer over the queue
+    pool = serving.SpGEMMPool(serving.PoolConfig(
+        workers=2, max_batch=8, max_queue=13, plan_cache_size=64,
+        warm_plans=True), autostart=False)
+    if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+        torch.cuda.reset_peak_host_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(kd, kh, kl)
+    t0 = time.perf_counter()
+    futs, shed = submit_all(pool)
+    if not pool.warm_wait(SERVE_TIMEOUT):
+        raise AssertionError("burst: the warmer did not finish in time")
+    with pool._lock:
+        warm_states = [r.warm_state for r in pool._queue]
+    t_warm = time.perf_counter() - t0
+    pool.start()
+    for _, _, f in futs:
+        f.result(SERVE_TIMEOUT)
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    launched = read_counts(kd, kh, kl)
+    path_counts["serving"] = launched
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    pinned = ({k: v for k, v in torch.cuda.host_memory_stats().items()
+               if "peak" in k and "bytes" in k}
+              if hasattr(torch.cuda, "host_memory_stats") else None)
+    pool.shutdown(timeout=SERVE_TIMEOUT)
+    st = pool.stats
+    collect(futs, "burst")
+    del futs
+    log(f"burst: wall {burst_s:.3f} s for {len(reqs)} requests (warm_wait "
+        f"{t_warm:.3f} s), warm states {warm_states}, batches {st.batches} "
+        f"occupancy {st.batch_occupancy:.2f}, p50 {st.p50_seconds:.3f} p95 "
+        f"{st.p95_seconds:.3f} p99 {st.p99_seconds:.3f} s, peak_mem "
+        f"{peak_gib:.2f} GiB, pinned host {json.dumps(pinned)}")
+    log(f"  launches {json.dumps(launched)}")
+    if shed or st.requests != 12 or st.batched_requests != 12:
+        raise AssertionError(f"burst: shed {shed}, requests {st.requests}, "
+                             f"batched {st.batched_requests}; want 0, 12, 12")
+    if "error" in warm_states:
+        raise AssertionError(f"burst: warm states {warm_states}")
+    distinct = len(set(reqs))
+    if st.plans_warmed != distinct or st.plan_hits != len(reqs):
+        raise AssertionError(f"burst: plans warmed {st.plans_warmed} (want "
+                             f"{distinct}), plan hits {st.plan_hits} (want "
+                             f"{len(reqs)})")
+    # the plans the warmer built: the dense kernel once a dense bin in every
+    # request, hll_merge once a sampled CR and once an estimation prediction
+    # of each plan, every request through the dense or the hash kernel
+    key = {p: planner.structure_key(a, b, OceanConfig(), None, True, True)
+           for p, a in enumerate(pats)}
+    plans = {(t, p): pool.service.plan_cache_for(t).peek(key[p])
+             for t, p in set(reqs)}
+    want_dense = {"dense_window": 0, "dense_longrow": 0}
+    hash_bins = 0
+    for t, p in reqs:
+        plan = plans[t, p]
+        if not plan.dense and not plan.hash:
+            raise AssertionError(f"burst: {t}'s {names[p]} plan has no dense"
+                                 " or hash bin")
+        want_dense["dense_window"] += sum(not be.is_longrow
+                                          for be in plan.dense)
+        want_dense["dense_longrow"] += sum(be.is_longrow for be in plan.dense)
+        hash_bins += len(plan.hash)
+    want_merges = sum(int(pl.sampled_cr is not None)
+                      + int(pl.workflow == "estimation")
+                      for pl in plans.values())
+    got_dense = {k: launched[k] for k in want_dense}
+    # every rung was tuned by the serial calls above, so the burst measures
+    # nothing and launches the hash kernel exactly once a hash bin
+    if got_dense != want_dense or launched["hash"] != hash_bins:
+        raise AssertionError(f"burst: dense launches {got_dense}, want "
+                             f"{want_dense}; hash {launched['hash']}, hash "
+                             f"bins {hash_bins}")
+    if launched["hll_merge"] != want_merges:
+        raise AssertionError(f"burst: hll_merge launches "
+                             f"{launched['hll_merge']}, want {want_merges}")
+    if sum(launched.values()) == 0:
+        raise AssertionError("burst: no kernel of ours was launched")
+    workflows = {f"{t}/{names[p]}": pl.workflow for (t, p), pl in
+                 sorted(plans.items())}
+    log(f"burst: 12 C bit-identical to the serial calls; plans {workflows}"
+        f"; warm hits by tenant {json.dumps(st.plan_warm_hits_by_tenant)}, "
+        f"sketch warm hits {json.dumps(st.sketch_warm_hits_by_tenant)}")
+
+    # admission: a small pool sheds 8 of the 12 and serves 4
+    small = serving.SpGEMMPool(serving.PoolConfig(
+        workers=1, max_batch=4, max_queue=4), autostart=False)
+    sfuts, sshed = submit_all(small)
+    small.start()
+    collect(sfuts, "shed pool")
+    small.shutdown(timeout=SERVE_TIMEOUT)
+    if sshed != 8 or small.stats.shed != 8 or small.stats.requests != 4:
+        raise AssertionError(f"shed pool: {sshed} AdmissionErrors, stats "
+                             f"shed {small.stats.shed} served "
+                             f"{small.stats.requests}; want 8, 8, 4")
+    log(f"shed pool: 8 of 12 shed (shed rate {small.stats.shed_rate:.3f}), "
+        "4 served bit-identical")
+
+    # chains through the service: k-hop, 3 hops, on the triangle graph
+    svc = serving.SpGEMMService()
+    seeds = [0, 1, 2]
+    f0 = graph.seeds_to_frontier(seeds, adj.n, device=dev)
+    chains = []
+    for t in ("acme", "acme", "globex"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.run_chain(f0, adj, 3, tenant=t,
+                            post=graph.bool_post(adj.n))
+        torch.cuda.synchronize()
+        chains.append((t, res, time.perf_counter() - t0))
+    a_sp = to_scipy(adj)
+    cur = np.zeros(adj.n, np.float64)
+    cur[seeds] = 1.0
+    for _ in range(3):
+        cur = (a_sp.T @ cur != 0).astype(np.float64)
+    for t, res, _ in chains:
+        if not np.array_equal(formats.to_numpy(res.final)[1],
+                              np.nonzero(cur)[0]):
+            raise AssertionError(f"chain {t}: frontier differs from scipy")
+    (_, a1, _), (_, a2, _), (_, g1, _) = chains
+    if a2.stats.plan_hits + a2.stats.feed_forward_skips == 0:
+        raise AssertionError("chain acme, second run: no plan reuse")
+    if (g1.stats.feed_forward_skips
+            or svc.size_feed_for(adj, "globex") is svc.size_feed_for(
+                adj, "acme")):
+        raise AssertionError("chain globex: used acme's size feed")
+    chain_out = [{"tenant": t, "wall_s": w, "workflows": r.stats.workflows,
+                  "plan_hits": r.stats.plan_hits,
+                  "feed_forward_skips": r.stats.feed_forward_skips,
+                  "estimated_builds": r.stats.estimated_builds}
+                 for t, r, w in chains]
+    log(f"chains (k-hop, 3 hops, R-MAT {adj.m} vertices): frontiers as "
+        f"scipy; {json.dumps(chain_out)}")
+
+    # yardstick: the same 12 requests one at a time through a fresh service
+    svc = serving.SpGEMMService(plan_cache_size=64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, p in reqs:
+        c, _ = svc.multiply(pats[p], b, tenant=t)
+        del c
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    log(f"serial service: wall {serial_s:.3f} s for 12 requests; pool / "
+        f"serial {burst_s / serial_s:.3f}")
+
+    # one more burst under a tracer, written as a Chrome trace
+    tracer = trace.Tracer()
+    with trace.tracing(tracer):
+        tpool = serving.SpGEMMPool(serving.PoolConfig(
+            workers=2, max_batch=8, max_queue=13), autostart=False)
+        tfuts, _ = submit_all(tpool)
+        if not tpool.warm_wait(SERVE_TIMEOUT):
+            raise AssertionError("traced burst: the warmer did not finish")
+        tpool.start()
+        for _, _, f in tfuts:
+            f.result(SERVE_TIMEOUT)
+        tpool.shutdown(timeout=SERVE_TIMEOUT)
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "serving_trace.json")
+    doc = trace_export.write_chrome_trace(tracer, path)
+    with open(path) as fh:
+        trace_export.validate_chrome_trace(fh.read())
+    span_names = {e["name"] for e in doc["traceEvents"]}
+    if not POOL_SPANS <= span_names or tpool.stats.requests != 12:
+        raise AssertionError(f"traced burst: pool spans "
+                             f"{sorted(span_names & POOL_SPANS)}, served "
+                             f"{tpool.stats.requests}")
+    log(f"trace: {len(doc['traceEvents'])} spans over "
+        f"{len({e['tid'] for e in doc['traceEvents']})} lanes, validated, "
+        f"written to {os.path.relpath(path, REPO)}")
+
+    peeked = {"b": b, "mats": {names[p]: (pats[p], plans[TENANTS[0], p])
+                               for p in range(len(pats))}}
+    return {
+        "rows": sn, "requests": len(reqs), "tenants": len(TENANTS),
+        "workers": 2, "max_batch": 8,
+        "burst_wall_s": burst_s, "burst_warm_wait_s": t_warm,
+        "burst_rps": len(reqs) / burst_s,
+        "serial_wall_s": serial_s, "serial_rps": len(reqs) / serial_s,
+        "serial_uncached_s": dict(zip(names, ref_walls)),
+        "p50_s": st.p50_seconds, "p95_s": st.p95_seconds,
+        "p99_s": st.p99_seconds, "batches": st.batches,
+        "batch_occupancy": st.batch_occupancy,
+        "mean_queue_wait_s": st.queue_wait_seconds / max(st.requests, 1),
+        "plans_warmed": st.plans_warmed, "plan_hits": st.plan_hits,
+        "plan_warm_hits_by_tenant": {str(k): v for k, v in
+                                     st.plan_warm_hits_by_tenant.items()},
+        "sketch_warm_hits_by_tenant": {str(k): v for k, v in
+                                       st.sketch_warm_hits_by_tenant.items()},
+        "warm_states": warm_states, "workflows": workflows,
+        "shed": small.stats.shed, "launches": launched,
+        "peak_mem_gib": peak_gib, "pinned_host_peak": pinned,
+        "structure_hash_s": hash_s, "chains": chain_out,
+        "trace_spans": len(doc["traceEvents"])}, peeked
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=20,
@@ -650,6 +950,8 @@ def main() -> int:
     ap.add_argument("--graph-scale", type=int, default=16,
                     help="R-MAT scale of the triangle graph; k-hop runs at "
                     "this + 2, MCL at this - 4")
+    ap.add_argument("--serve-log2-rows", type=int, default=20,
+                    help="rows (= columns) of the serving phase's matrices")
     args = ap.parse_args()
 
     import torch
@@ -1010,6 +1312,13 @@ def main() -> int:
     log("hll_merge launches (sampled CR + estimation, checked per call): "
         f"k-hop by hop {[la['hll_merge'] for *_, la in runner_k.steps]}, "
         f"MCL by iteration {[la['hll_merge'] for *_, la in runner.steps]}")
+    done()
+
+    # ---------------- 2d. serving tier ----------------
+    done = phase(f"2d. serving tier at {1 << args.serve_log2_rows} rows, "
+                 f"{len(TENANTS)} tenants x 4 requests")
+    serving_line, served = serving_phase(args, dev, adj_t, kd, kh, kl,
+                                         path_counts)
     counts = {k: sum(pc[k] for pc in path_counts.values())
               for k in read_counts(kd, kh, kl)}
     by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
@@ -1025,9 +1334,11 @@ def main() -> int:
     plan_l = plan_of(*mats[-1])
     a_band = mats[0][1]
 
-    def dense_case(label, a, be, key):
-        """The dense kernel on a whole bin, as the path launches it."""
-        b_cols, b_vals = ops.pad_b_flat(a)
+    def dense_case(label, a, be, b=None):
+        """The dense kernel on a whole bin of A @ B (B = A when ``b`` is
+        None), as the path launches it."""
+        b = a if b is None else b
+        b_cols, b_vals = ops.pad_b_flat(b)
         a_vals = ops.gather_bin_values(a.values, be.pos, be.valid)
         args_ = (be.a_rows, a_vals, be.a_starts, be.a_lens, be.row_lo,
                  b_cols, b_vals)
@@ -1042,7 +1353,7 @@ def main() -> int:
                        KERNEL_RUNS)
         plain_ms = time_cuda(lambda: kd.dense_slab_plain(*args_, **kw), 3)
         # the library: one torch.sparse product of the bin's rows of A by B
-        lib_ms, lib_rows = library_rows(a, be.rows)
+        lib_ms, lib_rows = library_rows(a, be.rows, b)
         lib_nnz = int(lib_rows.sum())
         r, e = be.a_rows.shape
         products = float(torch.where(be.a_rows >= 0, be.a_lens, 0)
@@ -1055,34 +1366,52 @@ def main() -> int:
             f"rows over cap {over} max_abs_err {err:.3g} kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms torch.sparse {lib_ms:.3f} ms bound "
             f"{b_ms:.3f} ms ({b_by}, {by / 1e9:.4f} GB)")
+        return {"bin": label, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms,
+                "shape": {"R": r, "E": e, "window": be.window,
+                          "col_tiles": be.col_tiles, "cap": be.cap,
+                          "products": int(products), "nnz": nnz,
+                          "rows_over_cap": over, "library_nnz": lib_nnz}}
+
+    # the serving patterns' bins against the serving B: the largest of each
+    # dense rung and the largest hash bin of every pattern's plan
+    serve_dense = {"dense_window": [], "dense_longrow": []}
+    serve_hash = []
+    for sname, (sa, splan) in served["mats"].items():
+        for key, longrow in (("dense_window", False),
+                             ("dense_longrow", True)):
+            rung = [be for be in splan.dense if be.is_longrow == longrow]
+            if rung:
+                serve_dense[key].append(dense_case(
+                    f"{key} serving {sname}", sa,
+                    max(rung, key=lambda be: len(be.rows)), served["b"]))
+
+    windowed = [be for be in plan_b.dense if not be.is_longrow]
+    be_w = max(windowed, key=lambda be: len(be.rows))
+    a_long = mats[-1][1]
+    be_l = max((be for be in plan_l.dense if be.is_longrow),
+               key=lambda be: len(be.rows))
+    for key, a, be in (("dense_window", a_band, be_w),
+                       ("dense_longrow", a_long, be_l)):
+        top = dense_case(key, a, be)
         kernels.append({
-            "name": f"spgemm_dense_bin[{label.split('_')[-1]}]",
+            "name": f"spgemm_dense_bin[{key.split('_')[-1]}]",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/spgemm_dense.cu",
             "replaces": "src/repro/kernels/spgemm_dense.py:178",
             "launches": counts[key], "launches_by_path": by_path[key],
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
-            "shape": {"R": r, "E": e, "window": be.window,
-                      "col_tiles": be.col_tiles, "cap": be.cap,
-                      "products": int(products), "nnz": nnz,
-                      "rows_over_cap": over, "library_nnz": lib_nnz}})
-
-    windowed = [be for be in plan_b.dense if not be.is_longrow]
-    be_w = max(windowed, key=lambda be: len(be.rows))
-    dense_case("dense_window", a_band, be_w, "dense_window")
-    a_long = mats[-1][1]
-    be_l = max((be for be in plan_l.dense if be.is_longrow),
-               key=lambda be: len(be.rows))
-    dense_case("dense_longrow", a_long, be_l, "dense_longrow")
+            **{k: v for k, v in top.items() if k != "bin"},
+            "also": serve_dense[key]})
     dense_edge_cases(kd, dev)
 
     # hash: every hash bin of the power-law plan, the triangle plan's
     # widest, then edge cases; the record is the largest bin by rows
-    def hash_case(label, a, hb):
-        """The hash kernel on a whole bin, as the path launches it."""
-        b_cols, b_vals = ops.pad_b_flat(a)
+    def hash_case(label, a, hb, b=None):
+        """The hash kernel on a whole bin of A @ B (B = A when ``b`` is
+        None), as the path launches it."""
+        b = a if b is None else b
+        b_cols, b_vals = ops.pad_b_flat(b)
         a_vals = ops.gather_bin_values(a.values, hb.pos, hb.valid)
         args_ = (hb.a_rows, a_vals, hb.a_starts, hb.a_lens, b_cols, b_vals)
         kw = dict(table=hb.table, spill=hb.spill)
@@ -1093,7 +1422,7 @@ def main() -> int:
         del got, want
         ms = time_cuda(lambda: kh.spgemm_hash_bin(*args_, **kw), KERNEL_RUNS)
         plain_ms = time_cuda(lambda: kh.hash_bin_plain(*args_, **kw), 3)
-        lib_ms, lib_rows = library_rows(a, hb.rows)
+        lib_ms, lib_rows = library_rows(a, hb.rows, b)
         lib_nnz = int(lib_rows.sum())
         if lib_nnz != nnz:
             raise AssertionError(f"{label}: torch.sparse has {lib_nnz} "
@@ -1133,6 +1462,12 @@ def main() -> int:
                                    hb_t))
     else:
         log("hash: the triangle plan has no hash bin at this scale")
+    for sname, (sa, splan) in served["mats"].items():
+        if splan.hash:
+            hb_s = max(splan.hash, key=lambda h: len(h.rows))
+            serve_hash.append(hash_case(
+                f"hash serving {sname} t{hb_s.table}", sa, hb_s,
+                served["b"]))
     hash_edge_cases(kh, dev)
     top = hash_bins[int(np.argmax([len(h.rows) for h in
                                    sorted(plan_p.hash,
@@ -1143,7 +1478,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/spgemm_hash.py:170",
         "launches": counts["hash"], "launches_by_path": by_path["hash"],
         **{k: v for k, v in top.items() if k != "bin"},
-        "bins": hash_bins})
+        "bins": hash_bins, "also": serve_hash})
+    del served  # the serving matrices and plans: nothing after reads them
 
     # hll_merge: the estimation prediction's merge over all of banded's A,
     # and the analysis's sampled-CR merge, with the sketches the plan holds
@@ -1378,6 +1714,8 @@ def main() -> int:
     done()
 
     log(f"{smi}")
+    serving_line["card"] = smi
+    print(json.dumps({"serving": serving_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

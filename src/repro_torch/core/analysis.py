@@ -6,7 +6,7 @@ three statistics stages (products per row, B column ranges, output column
 ranges) run as integer segment reductions on the inputs' device in one
 pass, their results copy back asynchronously, and the host tail (sampled
 CR, Table-1 selection) is the reference's numpy, unchanged. The sharded
-``AnalysisPipeline`` is not ported yet (ROADMAP queue 1, item 9).
+``AnalysisPipeline`` is not ported yet (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ def resolve_devices(devices):
     """Only ``None`` (the inputs' own device) is supported in this port."""
     if devices is not None:
         raise NotImplementedError(
-            "device sets (devices=) are ROADMAP queue 1, item 9 "
+            "device sets (devices=) are ROADMAP queue 1, item 5 "
             "(multi-GPU); only devices=None runs in this port")
     return None
 

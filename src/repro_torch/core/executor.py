@@ -16,7 +16,7 @@ the other rows of its launch, so the ``serial``, ``pipelined`` and
 ``threaded`` collect modes give the same CSR bit for bit, fused
 :class:`MergePostOps` included (column-sum partials fold in dispatch
 order). The post-ops run on the host slabs, in numpy, as the reference's
-do. The sharded executor is not ported yet (ROADMAP queue 1, item 9).
+do. The sharded executor is not ported yet (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 

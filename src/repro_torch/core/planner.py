@@ -476,11 +476,21 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
 # ---------------------------------------------------------------------------
 
 class PlanCache:
-    """Thread-safe LRU cache of plans keyed by structure hash."""
+    """Thread-safe LRU cache of plans keyed by structure hash.
 
-    def __init__(self, maxsize: int = 32):
+    Multi-tenant serving (``repro_torch.serving``) shares one cache across
+    tenants through :meth:`namespaced` views: each tenant's keys live under
+    a private prefix, and its inserts are tagged with the tenant so that
+    eviction can be fair. With ``tenant_quota`` set, a tenant over its
+    quota evicts *its own* least-recently-used entry first; only then does
+    the global ``maxsize`` LRU bound apply across all tenants."""
+
+    def __init__(self, maxsize: int = 32,
+                 tenant_quota: Optional[int] = None):
         self.maxsize = maxsize
+        self.tenant_quota = tenant_quota
         self._plans: "OrderedDict[str, ExecutionPlan]" = OrderedDict()
+        self._tenant_of: Dict[str, str] = {}
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -503,16 +513,44 @@ class PlanCache:
                 self._plans.move_to_end(key)
             return plan
 
-    def insert(self, key: str, plan) -> None:
+    def insert(self, key: str, plan, tenant: Optional[str] = None) -> None:
         with self._lock:
             self._plans[key] = plan
             self._plans.move_to_end(key)
+            if tenant is not None:
+                self._tenant_of[key] = tenant
+            else:
+                self._tenant_of.pop(key, None)
+            if tenant is not None and self.tenant_quota:
+                # fairness first: an over-quota tenant recycles its own
+                # LRU slot instead of pushing another tenant's plan out
+                mine = [k for k in self._plans
+                        if self._tenant_of.get(k) == tenant]
+                for k in mine[:max(0, len(mine) - self.tenant_quota)]:
+                    del self._plans[k]
+                    del self._tenant_of[k]
             while len(self._plans) > self.maxsize:
-                self._plans.popitem(last=False)
+                k, _ = self._plans.popitem(last=False)
+                self._tenant_of.pop(k, None)
+
+    def namespaced(self, tenant: str) -> "TenantPlanCache":
+        """A per-tenant view of this cache (see :class:`TenantPlanCache`)."""
+        return TenantPlanCache(self, tenant)
+
+    def tenant_sizes(self) -> Dict[str, int]:
+        """Live entry count per tenant (untagged entries excluded)."""
+        with self._lock:
+            out: Dict[str, int] = {}
+            for k in self._plans:
+                t = self._tenant_of.get(k)
+                if t is not None:
+                    out[t] = out.get(t, 0) + 1
+            return out
 
     def clear(self) -> None:
         with self._lock:
             self._plans.clear()
+            self._tenant_of.clear()
             self.hits = 0
             self.misses = 0
 
@@ -524,6 +562,40 @@ class PlanCache:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
                     "size": len(self._plans)}
+
+
+class TenantPlanCache:
+    """Per-tenant namespace view over a shared :class:`PlanCache`.
+
+    Prefixes every key with the tenant id, so two tenants multiplying the
+    same structures get separate entries, and tags inserts with the
+    tenant so the base cache's quota applies. Offers the
+    ``lookup``/``peek``/``insert`` surface ``ocean_spgemm`` consumes, so a
+    view drops straight in as ``cache=``."""
+
+    _SEP = "\x1f"  # never appears in hex structure keys
+
+    def __init__(self, base: PlanCache, tenant: str):
+        self.base = base
+        self.tenant = tenant
+
+    def _k(self, key: str) -> str:
+        return f"{self.tenant}{self._SEP}{key}"
+
+    def lookup(self, key: str):
+        return self.base.lookup(self._k(key))
+
+    def peek(self, key: str):
+        return self.base.peek(self._k(key))
+
+    def insert(self, key: str, plan) -> None:
+        self.base.insert(self._k(key), plan, tenant=self.tenant)
+
+    def stats(self) -> Dict[str, int]:
+        return self.base.stats()
+
+    def __len__(self) -> int:
+        return self.base.tenant_sizes().get(self.tenant, 0)
 
 
 DEFAULT_PLAN_CACHE = PlanCache()

@@ -8,6 +8,15 @@ the winner in a :class:`TuningCache` keyed by (rung, device type, kernel
 path). The reference's DMA-chunk and row-tile knobs mean nothing to the
 CUDA design, so only the load factor is swept. A failed kernel build or
 launch propagates: it is never turned into the default tuning.
+
+Measurement is single-flight: the first thread to miss a key measures it,
+and every other thread asking for that key meanwhile waits for that one
+measurement and takes its result (or its error). So a process holds one
+load factor a key, and two plans built at once never take different ones.
+It does not give clean timing: two different keys may be measured at once,
+and ``_measure`` times on the host clock around a device synchronisation,
+so another thread's kernels on the shared stream fall into its time and
+can change which candidate wins.
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ import hashlib
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,12 +53,23 @@ class HashTuning:
 DEFAULT_TUNING = HashTuning()
 
 
+class _Flight:
+    """One measurement in progress: its waiters block on ``done``."""
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.result: Optional[HashTuning] = None
+        self.error: Optional[BaseException] = None
+
+
 class TuningCache:
-    """Thread-safe LRU of :class:`HashTuning` entries."""
+    """Thread-safe LRU of :class:`HashTuning` entries, with the
+    measurements in progress (one a key)."""
 
     def __init__(self, maxsize: int = 64):
         self.maxsize = maxsize
         self._entries: "OrderedDict[str, HashTuning]" = OrderedDict()
+        self._inflight: Dict[str, _Flight] = {}
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -63,6 +83,39 @@ class TuningCache:
             else:
                 self.misses += 1
             return hit
+
+    def get_or_measure(self, key: str,
+                       measure: Callable[[], HashTuning]) -> HashTuning:
+        """The entry for ``key``, calling ``measure`` on a miss. Threads
+        that miss ``key`` while a measurement of it runs wait for that one
+        and take its result, or raise its error; an error caches nothing."""
+        hit = self.lookup(key)
+        if hit is not None:
+            return hit
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None:
+                return hit
+            flight = self._inflight.get(key)
+            leader = flight is None
+            if leader:
+                flight = self._inflight[key] = _Flight()
+        if not leader:
+            flight.done.wait()
+            if flight.error is not None:
+                raise flight.error
+            return flight.result
+        try:
+            flight.result = measure()
+            self.insert(key, flight.result)
+            return flight.result
+        except BaseException as exc:
+            flight.error = exc
+            raise
+        finally:
+            with self._lock:
+                self._inflight.pop(key, None)
+            flight.done.set()
 
     def insert(self, key: str, tuning: HashTuning) -> None:
         with self._lock:
@@ -152,13 +205,9 @@ def _measure(rung: int, device) -> HashTuning:
 
 def hash_tuning_for(rung: int, cache: Optional[TuningCache] = None,
                     device="cpu") -> HashTuning:
-    """Measured load factor for a rung on ``device``, cached. Measurement
-    errors propagate."""
+    """Measured load factor for a rung on ``device``, cached and measured
+    once however many threads ask at once. Measurement errors propagate,
+    to the thread that measured and to every thread that waited on it."""
     cache = DEFAULT_TUNING_CACHE if cache is None else cache
-    key = tuning_key(rung, device)
-    hit = cache.lookup(key)
-    if hit is not None:
-        return hit
-    tuned = _measure(int(rung), device)
-    cache.insert(key, tuned)
-    return tuned
+    return cache.get_or_measure(tuning_key(rung, device),
+                                lambda: _measure(int(rung), device))

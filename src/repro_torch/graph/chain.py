@@ -17,7 +17,7 @@ The output CSR feeds straight back in as the next left-hand side, B's
 sketches are shared across the chain, and fused merge post-ops
 (``repro_torch.graph.ops``) ride along each multiply. Device sets
 (``devices=``/``analysis_devices=``) wait for the multi-GPU port (ROADMAP
-queue 1, item 9) and raise.
+queue 1, item 5) and raise.
 """
 from __future__ import annotations
 

@@ -1,1 +1,1 @@
-"""Measurement scripts of the port, run on a CUDA card."""
+"""Scripts of the port: measurements on a CUDA card, and the trace export."""
