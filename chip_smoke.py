@@ -51,6 +51,20 @@ Phases, each of which raises on failure:
    same 12 requests through a serial service as the yardstick; one more
    burst under a tracer, written to ``chiprun_out/serving_trace.json`` and
    validated;
+2e. the device-partitioned path on ``--shards`` (default 4) logical shards
+   of card 0 (the device set ``[cuda:0] * shards``): banded and power-law
+   through ``ocean_spgemm(a, a, devices=D)`` cold and warm on a fresh plan
+   cache, each C bit-identical to phase 2's; ``analyze(a, a, devices=D)``
+   equal to ``analyze(a, a)`` field for field and ``sharded_merge_estimate``
+   on banded equal to one device's; triangles and MCL through ``devices=D``
+   equal to phase 2c's; an ``SpGEMMService(devices=D)`` answering one phase-2d
+   request of each pattern, each C bit-identical to the serial uncached
+   call; every call's launches checked exactly (the dense and hash kernels
+   once a non-empty (shard, bin) slice, ``hll_sketch`` once a non-empty B
+   block and ``hll_merge`` once a non-empty A block of an estimation
+   prediction plus the sampled CR's, nothing but the bin kernels when
+   warm), with the shard costs, imbalance, partition seconds, analysis
+   shard seconds, walls beside phase 2's and peak device memory printed;
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2, 2c and 2d paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
@@ -66,7 +80,10 @@ Phases, each of which raises on failure:
    B at m 32 and on banded's at m 64 and 128, sketches one byte a register,
    with profiler device times (null unless the profiler recorded each
    kernel once a launch) and bounds at one byte and at four a register,
-   counting the sketch rows the ids select); then the dense, hash, count and HLL kernels on edge cases the
+   counting the sketch rows the ids select; and one phase-2e shard slice of
+   banded's window bin, of the long-row bin and of power-law's largest hash
+   bin, and banded's first A and B block through ``hll_merge`` and
+   ``hll_sketch``); then the dense, hash, count and HLL kernels on edge cases the
    paths may not give them (dense: rows past the
    slab's cap, padding, a B row over the stage, a column range wider than
    one shared-memory bitmap; hash: rows that spill or overflow both tables,
@@ -81,8 +98,8 @@ Phases, each of which raises on failure:
 5. one more warm call per phase-2 matrix under torch.profiler gives the
    device's busy time and idle share.
 
-Before the last line come ``{"serving": {...}}`` (phase 2d's numbers) and
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+Before the last line come ``{"serving": {...}}`` (phase 2d's numbers),
+``{"sharded": {...}}`` (phase 2e's) and ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits
 with a non-zero code and prints no result.
 """
@@ -919,7 +936,8 @@ def serving_phase(args, dev, adj, kd, kh, kl, path_counts):
         f"written to {os.path.relpath(path, REPO)}")
 
     peeked = {"b": b, "mats": {names[p]: (pats[p], plans[TENANTS[0], p])
-                               for p in range(len(pats))}}
+                               for p in range(len(pats))},
+              "refs": dict(zip(names, refs))}
     return {
         "rows": sn, "requests": len(reqs), "tenants": len(TENANTS),
         "workers": 2, "max_batch": 8,
@@ -943,6 +961,237 @@ def serving_phase(args, dev, adj, kd, kh, kl, path_counts):
         "trace_spans": len(doc["traceEvents"])}, peeked
 
 
+def same_csr_on_card(x, y) -> bool:
+    """Two CSRs equal bit for bit, compared where they live."""
+    import torch
+    return (x.shape == y.shape and x.nnz == y.nnz
+            and torch.equal(x.indptr, y.indptr)
+            and torch.equal(x.indices[: x.nnz], y.indices[: y.nnz])
+            and torch.equal(x.values[: x.nnz], y.values[: y.nnz]))
+
+
+def sharded_wanted(splan, rep, a, b, n, count=None) -> dict:
+    """The launches a sharded call must make: the dense and hash kernels
+    once a non-empty (shard, bin) slice; on a cold call ``hll_sketch`` once
+    a non-empty B block when the analysis sketched, ``hll_merge`` once for
+    the sampled CR and once a non-empty A block of an estimation
+    prediction, and the count kernel ``count`` times (None: not checked);
+    nothing else on a warm call."""
+    from repro_torch.core import analysis, formats
+    slices = [s for sh in splan.shards for s in sh.dense]
+    want = {"dense_window": sum(not s.is_longrow for s in slices),
+            "dense_longrow": sum(s.is_longrow for s in slices),
+            "hash": sum(len(sh.hash) for sh in splan.shards)}
+    if rep.plan_cache_hit:
+        return dict(want, hll_sketch=0, hll_merge=0, count=0)
+
+    def blocks(m):
+        return sum(r1 > r0 for r0, r1 in analysis.contiguous_split_rows(
+            formats.host(m.indptr), n))
+
+    sketched = rep.sampled_cr is not None
+    want["hll_sketch"] = blocks(b) if sketched else 0
+    want["hll_merge"] = int(sketched) + (blocks(a) if rep.workflow
+                                         == "estimation" else 0)
+    if count is not None:
+        want["count"] = count
+    return want
+
+
+def sharded_phase(args, device, kd, kh, kl, mats, results, call_counts,
+                  graph_runs, served, path_counts):
+    """Phase 2e: the device-partitioned path on ``args.shards`` logical
+    shards of ``device`` (card 0). Returns the fields of the ``{"sharded": ...}`` line,
+    and for phase 3 the sharded plans by name and banded's first A/B block
+    as ``(r0, r1)``."""
+    import torch
+    from repro_torch import graph, serving
+    from repro_torch.core import analysis, formats, planner, workflow
+    from repro_torch.core.analysis import OceanConfig
+    from repro_torch.core.dispatch import topology_key
+
+    n = args.shards
+    devs = [device] * n
+    topo = topology_key(devs)
+    total = {k: 0 for k in read_counts(kd, kh, kl)}
+    out = {"shards": n, "topology": topo, "calls": {}}
+    splans = {}
+
+    peaks = []
+
+    def counted(fn):
+        """``fn()`` with every count set to 0 just before and read just
+        after (the launches are added to the phase's path), its wall and
+        its peak device memory (appended to ``peaks``)."""
+        reset_counts(kd, kh, kl)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        got = read_counts(kd, kh, kl)
+        for k, v in got.items():
+            total[k] += v
+        return res, wall, got
+
+    def check(label, got, want):
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+
+    def shard_plan(cache, a, b):
+        key = planner.structure_key(a, b, OceanConfig(), None, True, True)
+        return cache.peek(key + "|" + topo)
+
+    # the earlier phases' tensors still resident: every peak below holds them
+    out["resident_at_start_gib"] = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory resident at the phase's start "
+        f"{out['resident_at_start_gib']:.2f} GiB")
+    # banded and power-law (and skewed, where phase 2 needed it): cold, warm
+    for name, a in mats:
+        cache = planner.PlanCache()
+        calls = {}
+        for i, call in enumerate(("cold", "warm")):
+            (c, rep), wall, got = counted(lambda: workflow.ocean_spgemm(
+                a, a, cache=cache, devices=devs))
+            peak = peaks[-1]
+            splan = shard_plan(cache, a, a)
+            want = sharded_wanted(splan, rep, a, a, n,
+                                  call_counts[name, call]["count"])
+            check(f"sharded {name} {call}", got, want)
+            if (rep.n_shards, rep.plan_cache_hit) != (n, call == "warm"):
+                raise AssertionError(f"sharded {name} {call}: n_shards "
+                                     f"{rep.n_shards}, hit "
+                                     f"{rep.plan_cache_hit}")
+            c_one = results[name][i][0]
+            if not same_csr_on_card(c, c_one):
+                raise AssertionError(f"sharded {name} {call}: C differs "
+                                     "from phase 2's")
+            del c
+            wall_one = results[name][i][2]
+            log_call(f"sharded {name} {call}", rep, wall, got, peak)
+            log(f"  phase 2 wall {wall_one:.3f} s; sharded / phase 2 "
+                f"{wall / wall_one:.3f} (logical shards of one card); C "
+                "bit-identical to phase 2's")
+            calls[call] = {"wall_s": wall, "phase2_wall_s": wall_one,
+                           "peak_mem_gib": peak, "launches": got,
+                           "stages": rep.stage_seconds}
+            if call == "cold":
+                calls["cold"]["analysis_shard_seconds"] = \
+                    rep.analysis_shard_seconds
+                log(f"  partition {rep.stage_seconds['partition']:.4f} s; "
+                    f"analysis shard seconds {rep.analysis_shard_seconds}; "
+                    f"{json.dumps(splan.describe())}")
+                calls["partition"] = splan.describe()
+        splans[name] = splan
+        out["calls"][name] = calls
+
+        # analysis and the merge estimate: sharded equal to one device
+        r0 = analysis.analyze(a, a)
+        r1 = analysis.analyze(a, a, devices=devs)
+        for f in ("workflow", "total_products", "er", "m_regs",
+                  "sampled_cr", "cr_mean", "cr_std"):
+            if getattr(r0, f) != getattr(r1, f):
+                raise AssertionError(f"sharded analysis {name}: {f} "
+                                     f"{getattr(r1, f)} != {getattr(r0, f)}")
+        for f in ("products_row", "out_lo", "out_hi"):
+            if not np.array_equal(getattr(r0, f), getattr(r1, f)):
+                raise AssertionError(f"sharded analysis {name}: {f} differs")
+        if (r0.b_sketches is None) != (r1.b_sketches is None) or (
+                r0.b_sketches is not None
+                and not torch.equal(r0.b_sketches, r1.b_sketches)):
+            raise AssertionError(f"sharded analysis {name}: sketches differ")
+        log(f"sharded analysis {name}: equal to one device field for field"
+            f" (sketches byte for byte); shard seconds {r1.shard_seconds}")
+        if name == "banded":
+            sk = r0.b_sketches
+            one = analysis.sharded_merge_estimate(a, sk, clip_max=a.n)
+            est, _, got = counted(lambda: analysis.sharded_merge_estimate(
+                a, sk, clip_max=a.n, devices=devs))
+            if not np.array_equal(est, one):
+                raise AssertionError("sharded merge estimate differs from "
+                                     "one device's")
+            blocks = [(r0_, r1_) for r0_, r1_ in
+                      analysis.contiguous_split_rows(formats.host(a.indptr),
+                                                     n) if r1_ > r0_]
+            if got["hll_merge"] != len(blocks):
+                raise AssertionError(f"sharded merge estimate: "
+                                     f"{got['hll_merge']} hll_merge launches"
+                                     f", {len(blocks)} A blocks")
+            out["band_block"] = blocks[0]
+            log(f"sharded merge estimate banded: equal to one device's, "
+                f"{len(blocks)} hll_merge launches (A blocks {blocks})")
+        del r0, r1
+
+    # the graph path: triangles and MCL through the same device set
+    adj_t, tris, adj_m, mcl = graph_runs
+    tri_cache = planner.PlanCache()
+    low = graph.lower_triangle(adj_t)
+    for call in ("cold", "warm"):
+        (tri, rep), wall, got = counted(lambda: graph.triangle_count(
+            adj_t, cache=tri_cache, devices=devs))
+        splan = shard_plan(tri_cache, low, low)
+        check(f"sharded triangles {call}", got,
+              sharded_wanted(splan, rep, low, low, n))
+        if tri != tris[0]:
+            raise AssertionError(f"sharded triangles {call}: {tri}, phase "
+                                 f"2c {tris[0]}")
+        log_call(f"sharded triangles {call}", rep, wall, got)
+        out["calls"][f"triangles {call}"] = {"wall_s": wall,
+                                             "launches": got}
+    log(f"sharded triangles: {tris[0]} as phase 2c")
+    mcl_s, wall, got = counted(lambda: graph.markov_cluster(
+        adj_m, iterations=4, devices=devs))
+    if not np.array_equal(mcl_s.labels, mcl.labels):
+        raise AssertionError("sharded MCL: labels differ from phase 2c")
+    got_np, want_np = formats.to_numpy(mcl_s.matrix), formats.to_numpy(
+        mcl.matrix)
+    if not (np.array_equal(got_np[0], want_np[0])
+            and np.array_equal(got_np[1], want_np[1])):
+        raise AssertionError("sharded MCL: structure differs from phase 2c")
+    np.testing.assert_allclose(got_np[2], want_np[2], rtol=1e-5, atol=1e-6,
+                               err_msg="sharded MCL")
+    same = np.array_equal(got_np[2], want_np[2])
+    if any(r.n_shards != n for r in mcl_s.result.reports):
+        raise AssertionError("sharded MCL: an iteration ran unsharded")
+    log(f"sharded MCL: wall {wall:.3f} s, launches {json.dumps(got)}, "
+        f"labels and structure as phase 2c, values "
+        f"{'bit-identical' if same else 'within rtol 1e-5'}")
+    out["calls"]["MCL"] = {"wall_s": wall, "launches": got,
+                           "values_bit_identical": same}
+
+    # the service: one request of each serving pattern
+    svc = serving.SpGEMMService(devices=devs)
+    b = served["b"]
+    for sname, (sa, _) in served["mats"].items():
+        (c, rep), wall, got = counted(lambda: svc.multiply(sa, b))
+        splan = shard_plan(svc.plan_cache, sa, b)
+        check(f"sharded service {sname}", got,
+              sharded_wanted(splan, rep, sa, b, n))
+        if not same_csr_on_card(c, served["refs"][sname]):
+            raise AssertionError(f"sharded service {sname}: C differs from "
+                                 "the serial uncached call")
+        del c
+        log_call(f"sharded service {sname} @ B", rep, wall, got)
+        out["calls"][f"service {sname}"] = {"wall_s": wall,
+                                            "launches": got}
+    log("sharded service: 3 C bit-identical to the serial uncached calls")
+    out["peak_mem_gib"] = max(peaks)
+    out["launches"] = path_counts["sharded"] = total
+    missing = [k for k in ("dense_window", "hash", "hll_sketch",
+                           "hll_merge", "count") if not total[k]]
+    if any(s.is_longrow for sp in splans.values() for sh in sp.shards
+           for s in sh.dense) and not total["dense_longrow"]:
+        missing.append("dense_longrow")
+    if missing:
+        raise AssertionError(f"sharded path: kernels never launched "
+                             f"{missing}")
+    log(f"sharded path launches {json.dumps(total)}; peak device memory "
+        f"{out['peak_mem_gib']:.2f} GiB (logical shards of one card)")
+    return out, splans
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=20,
@@ -952,6 +1201,8 @@ def main() -> int:
                     "this + 2, MCL at this - 4")
     ap.add_argument("--serve-log2-rows", type=int, default=20,
                     help="rows (= columns) of the serving phase's matrices")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="logical shards of card 0 in phase 2e")
     args = ap.parse_args()
 
     import torch
@@ -1319,6 +1570,14 @@ def main() -> int:
                  f"{len(TENANTS)} tenants x 4 requests")
     serving_line, served = serving_phase(args, dev, adj_t, kd, kh, kl,
                                          path_counts)
+    done()
+
+    # ---------------- 2e. sharded path ----------------
+    done = phase(f"2e. sharded path on {args.shards} logical shards of "
+                 "card 0")
+    sharded_line, splans = sharded_phase(
+        args, torch.device("cuda", 0), kd, kh, kl, mats, results, call_counts,
+        (adj_t, tris, adj_m, mcl), served, path_counts)
     counts = {k: sum(pc[k] for pc in path_counts.values())
               for k in read_counts(kd, kh, kl)}
     by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
@@ -1376,16 +1635,28 @@ def main() -> int:
 
     # the serving patterns' bins against the serving B: the largest of each
     # dense rung and the largest hash bin of every pattern's plan
-    serve_dense = {"dense_window": [], "dense_longrow": []}
-    serve_hash = []
+    also_dense = {"dense_window": [], "dense_longrow": []}
+    also_hash = []
     for sname, (sa, splan) in served["mats"].items():
         for key, longrow in (("dense_window", False),
                              ("dense_longrow", True)):
             rung = [be for be in splan.dense if be.is_longrow == longrow]
             if rung:
-                serve_dense[key].append(dense_case(
+                also_dense[key].append(dense_case(
                     f"{key} serving {sname}", sa,
                     max(rung, key=lambda be: len(be.rows)), served["b"]))
+    # one shard slice of each dense rung phase 2e launched: the largest
+    # slice of banded's window bins and of the long-row bins
+    for key, (sname, sa) in (("dense_window", mats[0]),
+                             ("dense_longrow", mats[-1])):
+        for sh in splans[sname].shards:
+            rung = [be for be in sh.dense
+                    if be.is_longrow == (key == "dense_longrow")]
+            if rung:
+                also_dense[key].append(dense_case(
+                    f"{key} shard {sh.index} of {sname}", sa,
+                    max(rung, key=lambda be: len(be.rows))))
+                break
 
     windowed = [be for be in plan_b.dense if not be.is_longrow]
     be_w = max(windowed, key=lambda be: len(be.rows))
@@ -1402,7 +1673,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/spgemm_dense.py:178",
             "launches": counts[key], "launches_by_path": by_path[key],
             **{k: v for k, v in top.items() if k != "bin"},
-            "also": serve_dense[key]})
+            "also": also_dense[key]})
     dense_edge_cases(kd, dev)
 
     # hash: every hash bin of the power-law plan, the triangle plan's
@@ -1465,9 +1736,16 @@ def main() -> int:
     for sname, (sa, splan) in served["mats"].items():
         if splan.hash:
             hb_s = max(splan.hash, key=lambda h: len(h.rows))
-            serve_hash.append(hash_case(
+            also_hash.append(hash_case(
                 f"hash serving {sname} t{hb_s.table}", sa, hb_s,
                 served["b"]))
+    # phase 2e: power-law's largest hash bin, one shard's slice of it
+    hb_big = max(splans["powerlaw"].plan.hash, key=lambda h: len(h.rows))
+    hb_slice = next(s for sh in splans["powerlaw"].shards for s in sh.hash
+                    if s.bin_id == hb_big.bin_id)
+    also_hash.append(hash_case(
+        f"hash shard slice of powerlaw t{hb_big.table} ({len(hb_slice.rows)}"
+        f" of {len(hb_big.rows)} rows)", a_pl, hb_slice))
     hash_edge_cases(kh, dev)
     top = hash_bins[int(np.argmax([len(h.rows) for h in
                                    sorted(plan_p.hash,
@@ -1478,7 +1756,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/spgemm_hash.py:170",
         "launches": counts["hash"], "launches_by_path": by_path["hash"],
         **{k: v for k, v in top.items() if k != "bin"},
-        "bins": hash_bins, "also": serve_hash})
+        "bins": hash_bins, "also": also_hash})
     del served  # the serving matrices and plans: nothing after reads them
 
     # hll_merge: the estimation prediction's merge over all of banded's A,
@@ -1534,13 +1812,17 @@ def main() -> int:
 
     mg_band = merge_case("banded", a_band)
     mg_sample = merge_case("banded sampled CR", sub_s)
+    # phase 2e's first A block (= B block) of banded
+    r0, r1 = sharded_line["band_block"]
+    band_block = planner.gather_rows(a_band, np.arange(r0, r1))
+    mg_block = merge_case(f"banded A block [{r0}, {r1})", band_block)
     kernels.append({
         "name": "hll_merge", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hll_merge.cu",
         "replaces": "src/repro/kernels/hll.py:108",
         "launches": counts["hll_merge"],
         "launches_by_path": by_path["hll_merge"], **mg_band,
-        "library_ms": None, "also": mg_sample})
+        "library_ms": None, "also": [mg_sample, mg_block]})
 
     # hll_sketch: B's sketches, as the analysis builds them
     def sketch_case(label, b, m):
@@ -1580,6 +1862,9 @@ def main() -> int:
     sk_band = sketch_case("banded", a_band, plan_b.m_regs)
     sk_more = [sketch_case("powerlaw", a_pl, 32)]
     sk_more += [sketch_case("banded", a_band, m) for m in (64, 128)]
+    sk_more.append(sketch_case(f"banded B block [{r0}, {r1})", band_block,
+                               plan_b.m_regs))
+    del band_block
     hll_edge_cases(kl, chll, dev)
     kernels.append({
         "name": "hll_sketch", "route": "cuda",
@@ -1715,7 +2000,9 @@ def main() -> int:
 
     log(f"{smi}")
     serving_line["card"] = smi
+    sharded_line["card"] = smi
     print(json.dumps({"serving": serving_line}))
+    print(json.dumps({"sharded": sharded_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ each CUDA tensor into a pinned host buffer with ``non_blocking=True`` on
 the current stream and records a CUDA event behind the copies. A launch is
 ready when its event's ``query()`` is True; CPU tensors are ready at once.
 Collection yields launches in completion order, never behind one global
-barrier.
+barrier. Device-set plumbing (:func:`resolve_devices`, :func:`topology_key`)
+lives here too, so the sharded analysis need not import the partitioner.
 """
 from __future__ import annotations
 
@@ -21,13 +22,54 @@ import torch
 from ..obs import trace
 
 
-def resolve_devices(devices):
-    """Only ``None`` (the inputs' own device) is supported in this port."""
-    if devices is not None:
-        raise NotImplementedError(
-            "device sets (devices=) are ROADMAP queue 1, item 5 "
-            "(multi-GPU); only devices=None runs in this port")
-    return None
+def _cuda_count() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def resolve_devices(devices=None) -> Tuple[torch.device, ...]:
+    """Normalize a device spec to a tuple of ``torch.device``.
+
+    ``None`` gives every CUDA device and an int N the first N; both raise
+    ``ValueError`` when there are fewer. A sequence of devices or strings
+    is taken in order, repeats allowed (logical shards of one card, or
+    ``["cpu"] * n``); a CUDA device it names must exist. A device mesh is
+    refused until ``launch/mesh.py`` is ported (ROADMAP queue 1, item 8).
+    """
+    if devices is None or isinstance(devices, int):
+        have = _cuda_count()
+        want = have if devices is None else devices
+        if want < 1 or want > have:
+            raise ValueError(f"requested {want} CUDA devices, have {have}")
+        return tuple(torch.device("cuda", i) for i in range(want))
+    if isinstance(devices, (str, torch.device)):
+        raise TypeError(f"a device set is a sequence of devices, got "
+                        f"{devices!r}; pass [{devices!r}]")
+    if hasattr(devices, "mesh") and hasattr(devices, "device_type"):
+        raise TypeError("device meshes wait for the port of launch/mesh.py "
+                        "(ROADMAP queue 1, item 8); pass a device list")
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("empty device set")
+    have = _cuda_count()
+    out = []
+    for d in devs:
+        if d.type == "cuda":
+            if not have:
+                raise ValueError(f"device {d} requested, have 0 CUDA "
+                                 "devices")
+            d = torch.device("cuda", torch.cuda.current_device()
+                             if d.index is None else d.index)
+            if d.index >= have:
+                raise ValueError(f"device {d} requested, have {have} CUDA "
+                                 "devices")
+        out.append(d)
+    return tuple(out)
+
+
+def topology_key(devices: Sequence) -> str:
+    """Stable string identity of an ordered device set: the component plan
+    caches add to a sharded plan's key (``"cuda:0,cuda:0"``)."""
+    return ",".join(str(torch.device(d)) for d in devices)
 
 
 @dataclasses.dataclass

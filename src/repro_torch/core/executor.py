@@ -1,10 +1,10 @@
 """Async SpGEMM executor: one dispatch -> collect -> merge pipeline.
 
-PyTorch port of the single-device ``repro.core.executor``:
+PyTorch port of ``repro.core.executor``:
 
-* **dispatch** enqueues every bin's kernel launch on the current stream
-  without blocking and starts async copies of each result slab into pinned
-  host memory (``core.dispatch``);
+* **dispatch** enqueues every (shard, bin) kernel launch on its device's
+  current stream without blocking and starts async copies of each result
+  slab into pinned host memory (``core.dispatch``);
 * **collect** pulls slabs back in completion order (per-launch CUDA
   events, no global barrier);
 * **merge** runs each slab's overflow scan and the incremental half of
@@ -16,7 +16,9 @@ the other rows of its launch, so the ``serial``, ``pipelined`` and
 ``threaded`` collect modes give the same CSR bit for bit, fused
 :class:`MergePostOps` included (column-sum partials fold in dispatch
 order). The post-ops run on the host slabs, in numpy, as the reference's
-do. The sharded executor is not ported yet (ROADMAP queue 1, item 5).
+do. A device-partitioned plan (``core.partition.ShardedPlan``) runs
+through the same pipeline: its shards' slabs are row subsets of the bins,
+so :func:`execute_sharded_plan` gives the single-device C bit for bit.
 """
 from __future__ import annotations
 
@@ -163,10 +165,18 @@ def _esc_to_slab(indptr: np.ndarray, indices: np.ndarray,
     return _Slab(rows, ell_i.numpy(), ell_v.numpy(), counts)
 
 
+def _gather_ell_values(exec_, a_values: torch.Tensor) -> torch.Tensor:
+    """A bin's ELL values: gathered where A's values live (the bin's value
+    map is kept there), then moved to the device of its kernel inputs."""
+    return kops.gather_bin_values(a_values, exec_.pos, exec_.valid).to(
+        exec_.a_rows.device)
+
+
 def _run_dense_bin(be: DenseBinExec, a_values: torch.Tensor, b_cols_pad,
                    b_vals_pad):
-    """Dispatch one dense bin; returns device tensors (cols, vals, nnz)."""
-    a_vals = kops.gather_bin_values(a_values, be.pos, be.valid)
+    """Dispatch one dense bin; returns device tensors (cols, vals, nnz).
+    Any row subset of a bin gives the whole bin's per-row output."""
+    a_vals = _gather_ell_values(be, a_values)
     return kops.dense_bin_op(
         be.a_rows, a_vals, be.a_starts, be.a_lens, be.row_lo, b_cols_pad,
         b_vals_pad, window=be.window, col_tiles=be.col_tiles, cap=be.cap)
@@ -175,18 +185,21 @@ def _run_dense_bin(be: DenseBinExec, a_values: torch.Tensor, b_cols_pad,
 def _run_hash_bin(hb: HashBinExec, a_values: torch.Tensor, b_cols_pad,
                   b_vals_pad):
     """Dispatch one hash bin; returns device tensors (cols, vals, nnz)."""
-    a_vals = kops.gather_bin_values(a_values, hb.pos, hb.valid)
+    a_vals = _gather_ell_values(hb, a_values)
     return kops.hash_bin_op(
         hb.a_rows, a_vals, hb.a_starts, hb.a_lens, b_cols_pad, b_vals_pad,
         table=hb.table, spill=hb.spill, f_chunk=hb.f_chunk, tile=hb.tile)
 
 
-def _run_esc_bin(ex: EscExec, a_values: torch.Tensor, b: CSR):
-    """Dispatch the ESC bin; returns the ESCResult."""
+def _run_esc_bin(ex: EscExec, a_values: torch.Tensor, b_arrays,
+                 n_cols: int):
+    """Dispatch the ESC bin against B's ``(indptr, indices, values)`` on
+    the bin's device; returns the ESCResult."""
+    b_indptr, b_indices, b_values = b_arrays
     return esc_mod.esc_spgemm(
-        ex.sub_indptr, ex.sub_indices, a_values[ex.src], b.indptr,
-        b.indices, b.values, num_rows_a=ex.sub_indptr.shape[0] - 1,
-        n_cols_b=b.n)
+        ex.sub_indptr, ex.sub_indices,
+        a_values[ex.src].to(ex.sub_indptr.device), b_indptr, b_indices,
+        b_values, num_rows_a=ex.sub_indptr.shape[0] - 1, n_cols_b=n_cols)
 
 
 def _compact_slabs(slabs: List[_Slab], shape: Tuple[int, int],
@@ -215,29 +228,54 @@ def _compact_slabs(slabs: List[_Slab], shape: Tuple[int, int],
                            device=device), total
 
 
-def _dispatch(plan: ExecutionPlan, a_values: torch.Tensor,
+@dataclasses.dataclass
+class _ShardWork:
+    """One device's slice of the launch schedule (the whole plan, on the
+    inputs' device, when executing unsharded)."""
+    device: Optional[torch.device]
+    dense: List[DenseBinExec]
+    esc: Optional[EscExec]
+    hash: List[HashBinExec] = dataclasses.field(default_factory=list)
+
+
+def _shards_of_plan(plan: ExecutionPlan) -> List[_ShardWork]:
+    return [_ShardWork(device=None, dense=plan.dense, esc=plan.esc,
+                       hash=plan.hash)]
+
+
+def _dispatch(shards: List[_ShardWork], a_values: torch.Tensor,
               b: CSR) -> List[Launch]:
-    """Enqueue every bin's launch without blocking and start the async
-    copies of its results. Tags are ``(kind, exec)``; ESC launches carry
-    their exact nnz as a third tag field."""
+    """Enqueue every (shard, bin) launch without blocking and start the
+    async copies of its results. B is padded once on its device and moved
+    to each shard's (``.to`` is a no-op on the same device). Tags are
+    ``(kind, exec)``; ESC launches carry their exact nnz as a third tag
+    field."""
     items: List[Launch] = []
     order = 0
     with device_context(b.device):
-        b_cols_pad, b_vals_pad = kops.pad_b_flat(b)
-        for be in plan.dense:
-            arrays = _run_dense_bin(be, a_values, b_cols_pad, b_vals_pad)
-            items.append(Launch(("dense", be), order, tuple(arrays)))
-            order += 1
-        for hb in plan.hash:
-            arrays = _run_hash_bin(hb, a_values, b_cols_pad, b_vals_pad)
-            items.append(Launch(("hash", hb), order, tuple(arrays)))
-            order += 1
-        if plan.esc is not None:
-            res = _run_esc_bin(plan.esc, a_values, b)
-            items.append(Launch(("esc", plan.esc, res.nnz), order,
-                                (res.indptr, res.indices, res.values)))
-            order += 1
-        start_async_host_copies(items)
+        b_pad = kops.pad_b_flat(b)
+    for shard in shards:
+        if not shard.dense and not shard.hash and shard.esc is None:
+            continue
+        dev = b.device if shard.device is None else shard.device
+        with device_context(dev):
+            b_cols_pad, b_vals_pad = (x.to(dev) for x in b_pad)
+            for be in shard.dense:
+                arrays = _run_dense_bin(be, a_values, b_cols_pad, b_vals_pad)
+                items.append(Launch(("dense", be), order, tuple(arrays)))
+                order += 1
+            for hb in shard.hash:
+                arrays = _run_hash_bin(hb, a_values, b_cols_pad, b_vals_pad)
+                items.append(Launch(("hash", hb), order, tuple(arrays)))
+                order += 1
+            if shard.esc is not None:
+                b_esc = tuple(x.to(dev) for x in (b.indptr, b.indices,
+                                                  b.values))
+                res = _run_esc_bin(shard.esc, a_values, b_esc, b.n)
+                items.append(Launch(("esc", shard.esc, res.nnz), order,
+                                    (res.indptr, res.indices, res.values)))
+                order += 1
+    start_async_host_copies(items)
     return items
 
 
@@ -246,8 +284,10 @@ def _materialize(it: Launch) -> _Slab:
     kind, exec_ = it.tag[:2]
     arrays = host_arrays(it)
     if kind in ("dense", "hash"):
+        nv = exec_.n_valid
         cols, vals, nnz = arrays
-        return _Slab(exec_.rows, cols, vals, nnz.astype(np.int64))
+        return _Slab(exec_.rows, cols[:nv], vals[:nv],
+                     nnz[:nv].astype(np.int64))
     indptr, indices, values = arrays
     return _esc_to_slab(indptr, indices, values, it.tag[2], exec_.rows,
                         exec_.out_cap)
@@ -495,17 +535,12 @@ _COLLECT_OF = {PIPELINED: _collect_pipelined, THREADED: _collect_threaded,
                SERIAL: _collect_serial}
 
 
-def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
-                 stage: Optional[Dict[str, float]] = None,
-                 cache_hit: bool = False,
-                 executor: str = PIPELINED,
-                 post: Optional[MergePostOps] = None,
-                 ) -> Tuple[CSR, OceanReport]:
-    """Run a frozen plan against (possibly new) values of A and B.
-
-    ``post`` fuses mask/transform/prune/normalize stages into the merge;
-    plans are post-independent, so one plan serves masked and unmasked
-    calls alike."""
+def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
+             *, stage: Optional[Dict[str, float]], cache_hit: bool,
+             executor: str, n_shards: int, shard_imbalance: float,
+             post: Optional[MergePostOps]) -> Tuple[CSR, OceanReport]:
+    """The pipeline behind :func:`execute_plan` and
+    :func:`execute_sharded_plan`."""
     if executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r}; expected one of "
                          f"{EXECUTORS}")
@@ -522,7 +557,7 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
                                        "binning": 0.0}
 
     t0 = time.perf_counter()
-    items = _dispatch(plan, a.values, b)
+    items = _dispatch(shards, a.values, b)
     dispatch_s = time.perf_counter() - t0
     trace.add_span("exec.dispatch", t0, dispatch_s, launches=len(items))
 
@@ -546,9 +581,50 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
         total_products=plan.total_products, m_regs=plan.m_regs,
         stage_seconds=stage, bins=dict(plan.bins_describe),
         overflow_rows=n_overflow, nnz_out=total, plan_cache_hit=cache_hit,
-        feed_forward=plan.feed_forward, executor=executor,
-        overlap_seconds=overlap_s, raw_row_nnz=state.raw_counts,
+        feed_forward=plan.feed_forward, n_shards=n_shards,
+        shard_imbalance=shard_imbalance, executor=executor,
+        overlap_seconds=overlap_s, analysis_shards=plan.analysis_shards,
+        analysis_shard_seconds=plan.analysis_shard_seconds,
+        raw_row_nnz=state.raw_counts,
         wave2_overlap_seconds=plan.wave2_overlap_seconds,
         wave2_overlapped=plan.wave2_overlapped,
         estimation_accuracy=accuracy, decision=plan.decision)
     return c, report
+
+
+def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
+                 stage: Optional[Dict[str, float]] = None,
+                 cache_hit: bool = False,
+                 executor: str = PIPELINED,
+                 post: Optional[MergePostOps] = None,
+                 ) -> Tuple[CSR, OceanReport]:
+    """Run a frozen plan against (possibly new) values of A and B.
+
+    ``post`` fuses mask/transform/prune/normalize stages into the merge;
+    plans are post-independent, so one plan serves masked and unmasked
+    calls alike."""
+    return _execute(plan, _shards_of_plan(plan), a, b, stage=stage,
+                    cache_hit=cache_hit, executor=executor, n_shards=1,
+                    shard_imbalance=1.0, post=post)
+
+
+def execute_sharded_plan(splan, a: CSR, b: CSR, *,
+                         stage: Optional[Dict[str, float]] = None,
+                         cache_hit: bool = False,
+                         executor: str = PIPELINED,
+                         post: Optional[MergePostOps] = None,
+                         ) -> Tuple[CSR, OceanReport]:
+    """Run a :class:`~repro_torch.core.partition.ShardedPlan` across its
+    devices: each shard's bins launch on its device, and the slabs merge
+    through the same pipeline as :func:`execute_plan` (post-ops included,
+    which run on the host), so C is the single-device C bit for bit."""
+    if stage is None:
+        stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0,
+                 "partition": 0.0}
+    shards = [_ShardWork(device=sh.device, dense=sh.dense, esc=sh.esc,
+                         hash=sh.hash)
+              for sh in splan.shards]
+    return _execute(splan.plan, shards, a, b, stage=stage,
+                    cache_hit=cache_hit, executor=executor,
+                    n_shards=splan.n_shards,
+                    shard_imbalance=splan.imbalance, post=post)

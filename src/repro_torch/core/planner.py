@@ -1,13 +1,13 @@
 """Planner/executor split for Ocean SpGEMM (plan caching, paper Fig. 4).
 
-PyTorch port of ``repro.core.planner`` (single device). Analysis, size
-prediction and binning depend only on the sparsity patterns, so
-:func:`build_plan` freezes them into an :class:`ExecutionPlan` — bin
-ladder, per-bin ELL blocks on the device, ESC structure — that
-:func:`execute_plan` runs against any values of the same patterns, and
-:class:`PlanCache` keys plans by a hash of both patterns plus every planning
-knob. The binning ladders are the reference's, so plans match it bin for
-bin.
+PyTorch port of ``repro.core.planner``. Analysis, size prediction and
+binning depend only on the sparsity patterns, so :func:`build_plan` freezes
+them into an :class:`ExecutionPlan` — bin ladder, per-bin ELL blocks on the
+device, ESC structure — that :func:`execute_plan` runs against any values
+of the same patterns, and :class:`PlanCache` keys plans by a hash of both
+patterns plus every planning knob (a device-partitioned plan,
+``core.partition.ShardedPlan``, under that key and the device topology).
+The binning ladders are the reference's, so plans match it bin for bin.
 """
 from __future__ import annotations
 
@@ -186,6 +186,10 @@ class DenseBinExec:
     a_starts: torch.Tensor     # (R, ell) int32
     a_lens: torch.Tensor       # (R, ell) int32
     row_lo: torch.Tensor       # (R, 1) int32
+    cost: np.ndarray           # (R,) int64 per-row estimated products
+    bin_id: int                # position in the plan's bin ladder (shard
+                               # slices keep it)
+    n_valid: int               # real rows (slices are not padded: == R)
 
 
 @dataclasses.dataclass
@@ -202,6 +206,9 @@ class HashBinExec:
     a_rows: torch.Tensor
     a_starts: torch.Tensor
     a_lens: torch.Tensor
+    cost: np.ndarray
+    bin_id: int
+    n_valid: int
     f_chunk: int = 128
     tile: int = 8
 
@@ -212,8 +219,10 @@ class EscExec:
     rows: np.ndarray
     sub_indptr: torch.Tensor   # (rows+1,) int32
     sub_indices: torch.Tensor  # gathered column ids
-    src: torch.Tensor          # int64 gather into A's values
+    src: torch.Tensor          # int64 gather into A's values (A's device)
     out_cap: int               # the bin's exact product count
+    cost: np.ndarray           # per-row product counts
+    n_valid: int
 
 
 @dataclasses.dataclass
@@ -240,6 +249,9 @@ class ExecutionPlan:
     b_sketches: Optional[torch.Tensor]
     hash: List[HashBinExec] = dataclasses.field(default_factory=list)
     build_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # how the analysis stage ran when this plan was built
+    analysis_shards: int = 1
+    analysis_shard_seconds: Optional[List[float]] = None
     feed_forward: bool = False
     wave2_overlap_seconds: float = 0.0
     wave2_overlapped: bool = False
@@ -278,8 +290,14 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
                hybrid: bool = True, analysis: Optional[AnalysisResult] = None,
                sketch_cache: Optional[Dict] = None,
                key: Optional[str] = None,
+               analysis_devices=None,
                known_sizes: Optional[np.ndarray] = None) -> ExecutionPlan:
-    """Run analysis -> size prediction -> binning and freeze the result."""
+    """Run analysis -> size prediction -> binning and freeze the result.
+
+    ``analysis_devices`` shards the analysis and, on the estimation
+    workflow, the prediction's sketch merge across a device set; both are
+    bit-identical to the single-device run, so the plan key leaves it out.
+    The symbolic prediction stays on the inputs' device."""
     if a.device != b.device:
         raise ValueError(f"A on {a.device}, B on {b.device}")
     dev = a.device
@@ -325,6 +343,7 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     ov_s, ov_pending = 0.0, False
     if analysis is None:
         analysis = analyze(a, b, cfg, sketch_cache=sketch_cache,
+                           devices=analysis_devices,
                            known_sizes=known_sizes,
                            overlap_work=_wave2_prework)
         ov_s = analysis.wave2_overlap_seconds
@@ -352,7 +371,8 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             sketches = sketches_for(b, analysis.m_regs, cfg.seed,
                                     sketch_cache)
         # the sketches end in the all-zero sentinel row, the merge's pad
-        est = sharded_merge_estimate(a, sketches, clip_max=b.n)
+        est = sharded_merge_estimate(a, sketches, clip_max=b.n,
+                                     devices=analysis_devices)
         pred = np.maximum(np.asarray(est, np.float64), 1.0)
         pred = np.where(products > 0, pred, 0.0)
         pred = np.minimum(pred, products)  # distinct count <= products
@@ -398,7 +418,7 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             empty_rows=plan.empty_rows, hash_bins=plan.hash_bins)
 
     dense_execs: List[DenseBinExec] = []
-    for bn in plan.dense_bins:
+    for bin_id, bn in enumerate(plan.dense_bins):
         pos, valid, a_rows, a_starts, a_lens = kops.prep_bin_structure(
             a, b, bn.rows, bn.ell_width)
         lo_arr = (out_lo[bn.rows] if not bn.is_longrow
@@ -409,18 +429,21 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             window=bn.window, col_tiles=bn.col_tiles, cap=bn.cap,
             rows=bn.rows, ell_width=bn.ell_width, is_longrow=bn.is_longrow,
             pos=pos, valid=valid, a_rows=a_rows, a_starts=a_starts,
-            a_lens=a_lens, row_lo=row_lo))
+            a_lens=a_lens, row_lo=row_lo, cost=np.asarray(bn.cost, np.int64),
+            bin_id=bin_id, n_valid=len(bn.rows)))
 
     hash_execs: List[HashBinExec] = []
-    for hb in plan.hash_bins:
+    for hash_id, hb in enumerate(plan.hash_bins):
         pos, valid, a_rows, a_starts, a_lens = kops.prep_bin_structure(
             a, b, hb.rows, hb.ell_width)
         tuned = tuning_mod.hash_tuning_for(hb.table, device=dev)
         hash_execs.append(HashBinExec(
             table=hb.table, spill=hb.spill, rows=hb.rows,
             ell_width=hb.ell_width, pos=pos, valid=valid, a_rows=a_rows,
-            a_starts=a_starts, a_lens=a_lens, f_chunk=tuned.f_chunk,
-            tile=tuned.tile_rows))
+            a_starts=a_starts, a_lens=a_lens,
+            cost=np.asarray(hb.cost, np.int64),
+            bin_id=len(dense_execs) + hash_id, n_valid=len(hb.rows),
+            f_chunk=tuned.f_chunk, tile=tuned.tile_rows))
 
     esc_exec = None
     if len(plan.esc_rows):
@@ -436,7 +459,8 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         esc_exec = EscExec(
             rows=rows,
             sub_indptr=torch.from_numpy(sub_ptr.astype(np.int32)).to(dev),
-            sub_indices=a.indices[src_t], src=src_t, out_cap=p_cap)
+            sub_indices=a.indices[src_t], src=src_t, out_cap=p_cap,
+            cost=np.asarray(plan.esc_costs, np.int64), n_valid=len(rows))
     stage["binning"] = time.perf_counter() - t0
     trace.add_span("plan.binning", t0, stage["binning"])
 
@@ -454,7 +478,9 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         nproducts_avg=analysis.nproducts_avg, total_products=total_products,
         m_regs=analysis.m_regs, b_sketches=sketches
         if wf == "estimation" else analysis.b_sketches,
-        build_seconds=stage, feed_forward=(wf == "known"),
+        build_seconds=stage, analysis_shards=analysis.n_shards,
+        analysis_shard_seconds=analysis.shard_seconds,
+        feed_forward=(wf == "known"),
         wave2_overlap_seconds=ov_s, wave2_overlapped=ov_pending,
         pred_row_nnz=np.asarray(pred, np.float64), decision=decision)
 
@@ -468,6 +494,18 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
     optional fused ``post`` (``executor.MergePostOps``)."""
     from .executor import execute_plan as _execute
     return _execute(plan, a, b, stage=stage, cache_hit=cache_hit,
+                    executor=executor, post=post)
+
+
+def execute_sharded_plan(splan, a: CSR, b: CSR, *,
+                         stage: Optional[Dict[str, float]] = None,
+                         cache_hit: bool = False,
+                         executor: str = "pipelined",
+                         post=None) -> Tuple[CSR, OceanReport]:
+    """Run a :class:`~repro_torch.core.partition.ShardedPlan` across its
+    devices through the same executor pipeline."""
+    from .executor import execute_sharded_plan as _execute
+    return _execute(splan, a, b, stage=stage, cache_hit=cache_hit,
                     executor=executor, post=post)
 
 

@@ -4,9 +4,10 @@
              -> binning -> numeric accumulation -> overflow fallback
              -> post-processing (CSR compaction)
 
-PyTorch port of ``repro.core.workflow`` for one device. The call runs on
-the device its inputs live on (the hand-written CUDA kernels on a GPU, their
-plain versions on the CPU). Ablation knobs mirror the paper's Table 3:
+PyTorch port of ``repro.core.workflow``. The call runs on the device its
+inputs live on (the hand-written CUDA kernels on a GPU, their plain
+versions on the CPU), or with ``devices=`` across a device set
+(``core.partition``). Ablation knobs mirror the paper's Table 3:
 
     V1 baseline:  force_workflow='symbolic', assisted=False, hybrid=False
     V2 (+E):      assisted=False, hybrid=False
@@ -21,11 +22,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 from ..obs import trace
 from . import esc as esc_mod
 from .analysis import AnalysisResult, OceanConfig, products_per_row
-from .dispatch import resolve_devices
+from .dispatch import resolve_devices, topology_key
 from .formats import CSR
+from .partition import ShardedPlan, partition_plan
 from .planner import (DEFAULT_PLAN_CACHE, ExecutionPlan, OceanReport,
-                      PlanCache, build_plan, execute_plan, gather_rows,
-                      structure_key)
+                      PlanCache, build_plan, execute_plan,
+                      execute_sharded_plan, gather_rows, structure_key)
 
 __all__ = ["OceanReport", "ocean_spgemm", "ocean_spgemm_many",
            "spgemm_reference", "gather_rows", "warm_plan"]
@@ -42,20 +44,35 @@ def _resolve_cache(cache: Union[bool, PlanCache, None]):
                     f"got {type(cache).__name__}")
 
 
-def _check_single_device(a: CSR, b: CSR, devices,
-                         analysis_devices) -> None:
-    resolve_devices(devices)
-    resolve_devices(analysis_devices)
+def _check_same_device(a: CSR, b: CSR) -> None:
     if a.device != b.device:
         raise ValueError(f"A on {a.device} and B on {b.device}: both "
                          "operands must live on one device")
+
+
+def _device_sets(devices, analysis_devices):
+    """Resolved ``(devices, analysis_devices)``; the second defaults to
+    the first."""
+    devs = resolve_devices(devices) if devices is not None else None
+    an_devs = (resolve_devices(analysis_devices)
+               if analysis_devices is not None else devs)
+    return devs, an_devs
+
+
+def _partition(plan: ExecutionPlan, devs, stage: Dict[str, float]):
+    """``partition_plan`` timed into ``stage["partition"]`` and its span."""
+    t0 = time.perf_counter()
+    splan = partition_plan(plan, devs)
+    stage["partition"] = time.perf_counter() - t0
+    trace.add_span("plan.partition", t0, stage["partition"])
+    return splan
 
 
 def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
                  force_workflow: Optional[str] = None,
                  assisted: bool = True, hybrid: bool = True,
                  analysis: Optional[AnalysisResult] = None,
-                 plan: Optional[ExecutionPlan] = None,
+                 plan: Union[ExecutionPlan, ShardedPlan, None] = None,
                  cache: Union[bool, PlanCache, None] = True,
                  sketch_cache: Optional[Dict] = None,
                  devices=None,
@@ -67,7 +84,8 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     """Estimation-based SpGEMM, C = A @ B, on the operands' device.
     Returns (C, report).
 
-    ``plan``: execute a prebuilt :class:`ExecutionPlan` directly.
+    ``plan``: execute a prebuilt :class:`ExecutionPlan` (or ``ShardedPlan``)
+    directly.
     ``cache``: ``True`` (default) uses the process-wide LRU plan cache, a
     :class:`PlanCache` that cache, ``False``/``None`` always plans from
     scratch; a caller-supplied ``analysis`` bypasses the cache.
@@ -79,37 +97,80 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     value transform, prune, column-normalize) applied inside the merge;
     plans are post-independent, so a cached plan serves masked and
     unmasked calls alike (``repro_torch.graph.ops`` builds them).
-    ``devices``/``analysis_devices`` are not ported yet and raise.
+    ``devices``: partition the plan's bins across a device set (a list of
+    devices, repeats allowed, or a count of CUDA devices) and run the
+    shards; C is the single-device C bit for bit. Sharded plans are cached
+    under the structure key plus the topology, re-using a cached base
+    plan. With ``plan=ExecutionPlan`` it partitions on every call; pass a
+    ``ShardedPlan`` to reuse one. ``analysis_devices`` shards the analysis
+    stage (default: ``devices``); it changes no result and no cache key.
     """
-    _check_single_device(a, b, devices, analysis_devices)
+    _check_same_device(a, b)
     if plan is not None:
+        if isinstance(plan, ShardedPlan):
+            if devices is not None:
+                topo = topology_key(resolve_devices(devices))
+                if topo != plan.topology:
+                    raise ValueError(
+                        f"plan was partitioned for [{plan.topology}], "
+                        f"devices= requests [{topo}]; re-partition the "
+                        "base plan with partition_plan(plan.plan, devices)")
+            return execute_sharded_plan(plan, a, b, executor=executor,
+                                        post=post)
+        if devices is not None:
+            stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0}
+            splan = _partition(plan, resolve_devices(devices), stage)
+            return execute_sharded_plan(splan, a, b, stage=stage,
+                                        executor=executor, post=post)
         return execute_plan(plan, a, b, executor=executor, post=post)
+
+    devs, an_devs = _device_sets(devices, analysis_devices)
     cache_obj = _resolve_cache(cache) if analysis is None else None
     if cache_obj is not None:
         t0 = time.perf_counter()
         key = structure_key(a, b, cfg, force_workflow, assisted, hybrid,
                             known_sizes=known_sizes)
-        cached = cache_obj.lookup(key)
+        lkey = key if devs is None else key + "|" + topology_key(devs)
+        cached = cache_obj.lookup(lkey)
         lookup_s = time.perf_counter() - t0
         trace.add_span("plan.lookup", t0, lookup_s,
                        hit=bool(cached is not None))
         if cached is not None:
             stage = {"plan_lookup": lookup_s, "analysis": 0.0,
                      "prediction": 0.0, "binning": 0.0}
-            return execute_plan(cached, a, b, stage=stage, cache_hit=True,
-                                executor=executor, post=post)
-        base = build_plan(a, b, cfg, force_workflow=force_workflow,
-                          assisted=assisted, hybrid=hybrid,
-                          sketch_cache=sketch_cache, key=key,
-                          known_sizes=known_sizes)
-        cache_obj.insert(key, base)
-        stage = dict(base.build_seconds)
+            run = execute_plan if devs is None else execute_sharded_plan
+            return run(cached, a, b, stage=stage, cache_hit=True,
+                       executor=executor, post=post)
+        # a sharded miss re-uses a cached base plan of the structure (peek:
+        # the lookup above already counted the miss)
+        base = cache_obj.peek(key) if devs is not None else None
+        if base is not None:
+            stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0}
+        else:
+            base = build_plan(a, b, cfg, force_workflow=force_workflow,
+                              assisted=assisted, hybrid=hybrid,
+                              sketch_cache=sketch_cache, key=key,
+                              analysis_devices=an_devs,
+                              known_sizes=known_sizes)
+            cache_obj.insert(key, base)
+            stage = dict(base.build_seconds)
         stage["plan_lookup"] = lookup_s
-        return execute_plan(base, a, b, stage=stage, executor=executor,
-                            post=post)
+        if devs is None:
+            return execute_plan(base, a, b, stage=stage, executor=executor,
+                                post=post)
+        splan = _partition(base, devs, stage)
+        cache_obj.insert(lkey, splan)
+        return execute_sharded_plan(splan, a, b, stage=stage,
+                                    executor=executor, post=post)
     fresh = build_plan(a, b, cfg, force_workflow=force_workflow,
                        assisted=assisted, hybrid=hybrid, analysis=analysis,
-                       sketch_cache=sketch_cache, known_sizes=known_sizes)
+                       sketch_cache=sketch_cache, analysis_devices=an_devs,
+                       known_sizes=known_sizes)
+    if devs is not None:
+        stage = dict(fresh.build_seconds)
+        splan = _partition(fresh, devs, stage)
+        return execute_sharded_plan(splan, a, b, stage=stage,
+                                    executor=executor, post=post)
     return execute_plan(fresh, a, b, stage=fresh.build_seconds,
                         executor=executor, post=post)
 
@@ -122,21 +183,29 @@ def warm_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
               devices=None, analysis_devices=None,
               known_sizes=None) -> Tuple[str, bool]:
     """Build (or verify) the cached plan for ``A @ B`` without executing
-    it, keyed exactly as :func:`ocean_spgemm` keys it. Returns
-    ``(cache_key, built)``."""
-    _check_single_device(a, b, devices, analysis_devices)
+    it, keyed exactly as :func:`ocean_spgemm` keys it (with ``devices``,
+    the base plan and its partition). Returns ``(cache_key, built)``;
+    lookups ``peek``, so warming counts no hit or miss."""
+    _check_same_device(a, b)
     cache_obj = _resolve_cache(cache)
     if cache_obj is None:
         raise ValueError("warm_plan needs a cache to warm (cache=False/None)")
+    devs, an_devs = _device_sets(devices, analysis_devices)
     key = structure_key(a, b, cfg, force_workflow, assisted, hybrid,
                         known_sizes=known_sizes)
-    if cache_obj.peek(key) is not None:
-        return key, False
-    cache_obj.insert(key, build_plan(
-        a, b, cfg, force_workflow=force_workflow, assisted=assisted,
-        hybrid=hybrid, sketch_cache=sketch_cache, key=key,
-        known_sizes=known_sizes))
-    return key, True
+    lkey = key if devs is None else key + "|" + topology_key(devs)
+    if cache_obj.peek(lkey) is not None:
+        return lkey, False
+    base = cache_obj.peek(key) if devs is not None else None
+    if base is None:
+        base = build_plan(a, b, cfg, force_workflow=force_workflow,
+                          assisted=assisted, hybrid=hybrid,
+                          sketch_cache=sketch_cache, key=key,
+                          analysis_devices=an_devs, known_sizes=known_sizes)
+        cache_obj.insert(key, base)
+    if devs is not None:
+        cache_obj.insert(lkey, partition_plan(base, devs))
+    return lkey, True
 
 
 def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
@@ -151,7 +220,8 @@ def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
                       ) -> List[Tuple[CSR, OceanReport]]:
     """``[A_i @ B for A_i in a_list]`` against one B, sharing B's sketches
     across the stream. ``cache``/``sketch_cache`` also take one entry per
-    left-hand side; ``post`` applies to every product."""
+    left-hand side; ``post`` applies to every product; ``devices`` (resolved
+    once) shards every multiply."""
     n = len(a_list)
     caches = (list(cache) if isinstance(cache, (list, tuple))
               else [cache] * n)
@@ -164,10 +234,11 @@ def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
         raise ValueError(
             f"per-item cache/sketch_cache sequences must match a_list: "
             f"{len(caches)}/{len(sketches)} entries for {n} items")
+    devs, an_devs = _device_sets(devices, analysis_devices)
     return [ocean_spgemm(a, b, cfg, force_workflow=force_workflow,
                          assisted=assisted, hybrid=hybrid, cache=c,
-                         sketch_cache=s, devices=devices,
-                         analysis_devices=analysis_devices,
+                         sketch_cache=s, devices=devs,
+                         analysis_devices=an_devs,
                          executor=executor, post=post)
             for a, c, s in zip(a_list, caches, sketches)]
 

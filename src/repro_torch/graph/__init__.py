@@ -1,7 +1,7 @@
 """Graph analytics on the port: chained SpGEMM with exact feed-forward
 sizing, masked and fused multiplies, and seeded graph generators.
 
-PyTorch port of ``repro.graph`` (single device), with the same names.
+PyTorch port of ``repro.graph``, with the same names.
 """
 from .algorithms import (MCLResult, k_hop_frontier, lower_triangle,
                          markov_cluster, seeds_to_frontier, triangle_count)

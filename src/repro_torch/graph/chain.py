@@ -1,6 +1,6 @@
 """Chained SpGEMM with plan reuse and exact feed-forward sizing.
 
-PyTorch port of ``repro.graph.chain`` for one device. Iterative graph
+PyTorch port of ``repro.graph.chain``. Iterative graph
 workloads multiply against a fixed right-hand side again and again
 (``C_{k+1} = C_k @ A`` for k-hop frontiers) or square the iterate
 (``C_{k+1} = C_k @ C_k`` for MCL expansion). Two facts make such chains
@@ -15,9 +15,9 @@ cheaper than independent multiplies:
 
 The output CSR feeds straight back in as the next left-hand side, B's
 sketches are shared across the chain, and fused merge post-ops
-(``repro_torch.graph.ops``) ride along each multiply. Device sets
-(``devices=``/``analysis_devices=``) wait for the multi-GPU port (ROADMAP
-queue 1, item 5) and raise.
+(``repro_torch.graph.ops``) ride along each multiply. With ``devices=``
+every iteration runs device-partitioned (``core.partition``), its sharded
+plan cached under the structure key plus the topology.
 """
 from __future__ import annotations
 
@@ -29,11 +29,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.analysis import OceanConfig
-from ..core.dispatch import resolve_devices
+from ..core.dispatch import resolve_devices, topology_key
 from ..core.executor import MergePostOps
 from ..core.formats import CSR, host, lru_bucket, structure_hash
+from ..core.partition import partition_plan
 from ..core.planner import (OceanReport, PlanCache, build_plan,
-                            execute_plan, structure_key)
+                            execute_plan, execute_sharded_plan,
+                            structure_key)
 
 __all__ = ["ChainResult", "ChainRunner", "ChainStats", "SizeFeed",
            "spgemm_chain", "structure_hash"]
@@ -108,7 +110,9 @@ class ChainResult:
 class ChainRunner:
     """Stateful runner for iterated multiplies against a (usually fixed)
     right-hand side. Holds the per-chain plan cache, the RHS sketch caches
-    and the :class:`SizeFeed`; all three are injectable."""
+    and the :class:`SizeFeed`; all three are injectable.
+    ``devices``/``analysis_devices``/``executor`` are ``ocean_spgemm``'s
+    and apply to every iteration."""
 
     def __init__(self, rhs: Optional[CSR],
                  cfg: OceanConfig = OceanConfig(), *,
@@ -118,13 +122,16 @@ class ChainRunner:
                  devices=None,
                  analysis_devices=None,
                  executor: str = "pipelined"):
-        resolve_devices(devices)
-        resolve_devices(analysis_devices)
         self.rhs = rhs
         self.cfg = cfg
         self.plan_cache = (plan_cache if plan_cache is not None
                            else PlanCache(maxsize=plan_cache_size))
         self.size_feed = size_feed if size_feed is not None else SizeFeed()
+        self.devices = (resolve_devices(devices) if devices is not None
+                        else None)
+        self.analysis_devices = (resolve_devices(analysis_devices)
+                                 if analysis_devices is not None
+                                 else self.devices)
         self.executor = executor
         self.stats = ChainStats()           # lifetime accumulation
         self._sketch_caches: "OrderedDict[str, Dict]" = OrderedDict()
@@ -140,34 +147,51 @@ class ChainRunner:
 
         Plan resolution: plan cache -> size feed (a ``known_sizes`` build)
         -> a full estimation-based build. The cache key is the clean
-        structure key, so a feed-forward plan serves later lookups of the
-        same pattern pair."""
+        structure key (plus the topology when sharded), so a feed-forward
+        plan serves later lookups of the same pattern pair."""
         rhs = self.rhs if rhs is None else rhs
         if rhs is None:
             raise ValueError("no right-hand side: pass rhs= to step() or "
                              "construct the runner with one")
         t0 = time.perf_counter()
         key = structure_key(c, rhs, self.cfg, None, True, True)
-        plan = self.plan_cache.lookup(key)
+        lkey = (key if self.devices is None
+                else key + "|" + topology_key(self.devices))
+        plan = self.plan_cache.lookup(lkey)
         lookup_s = time.perf_counter() - t0
-        # "hit" (no planning), "known" (built from a size feed) or
-        # "estimated" (built with full prediction)
+        # "hit" (no planning; also a base plan that only needed
+        # partitioning), "known" (built from a size feed) or "estimated"
+        # (built with full prediction)
         resolved = "hit"
         if plan is None:
-            known = self.size_feed.get(key)
-            plan = build_plan(c, rhs, self.cfg, key=key,
-                              sketch_cache=self._sketch_cache_for(rhs),
-                              known_sizes=known)
-            self.plan_cache.insert(key, plan)
-            stage = dict(plan.build_seconds)
-            resolved = "known" if known is not None else "estimated"
+            base = (self.plan_cache.peek(key) if self.devices is not None
+                    else None)
+            if base is None:
+                known = self.size_feed.get(key)
+                base = build_plan(c, rhs, self.cfg, key=key,
+                                  sketch_cache=self._sketch_cache_for(rhs),
+                                  analysis_devices=self.analysis_devices,
+                                  known_sizes=known)
+                self.plan_cache.insert(key, base)
+                stage = dict(base.build_seconds)
+                resolved = "known" if known is not None else "estimated"
+            else:
+                stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0}
+            if self.devices is not None:
+                t0 = time.perf_counter()
+                plan = partition_plan(base, self.devices)
+                stage["partition"] = time.perf_counter() - t0
+                self.plan_cache.insert(lkey, plan)
+            else:
+                plan = base
         else:
             stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0}
         stage["plan_lookup"] = lookup_s
 
-        c_out, rep = execute_plan(plan, c, rhs, stage=stage,
-                                  cache_hit=resolved == "hit",
-                                  executor=self.executor, post=post)
+        run = execute_plan if self.devices is None else execute_sharded_plan
+        c_out, rep = run(plan, c, rhs, stage=stage,
+                         cache_hit=resolved == "hit",
+                         executor=self.executor, post=post)
 
         # the measured raw product sizes of this pattern pair feed the next
         # plan of the pair; a plan hit with a resident entry skips the

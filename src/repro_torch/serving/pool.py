@@ -1,7 +1,7 @@
 """Multi-tenant SpGEMM worker pool: bounded queue, admission control,
 micro-batching, fairness-aware per-tenant caches, SLO metrics.
 
-PyTorch port of ``repro.serving.pool`` (single device), with the same
+PyTorch port of ``repro.serving.pool``, with the same
 semantics and span names. :class:`SpGEMMPool` is the traffic-facing
 front-end over one
 :class:`~repro_torch.serving.spgemm_service.SpGEMMService`. Requests

@@ -1,6 +1,6 @@
 """SpGEMM serving front-end: plan-cached, tenant-aware multiplies.
 
-PyTorch port of ``repro.serving.spgemm_service`` (single device).
+PyTorch port of ``repro.serving.spgemm_service``.
 Production SpGEMM traffic (graph iterations, MoE dispatch, recurring
 serving requests) multiplies the *same sparsity patterns* over and over
 with fresh values. This module is the synchronous core of the serving
@@ -19,8 +19,7 @@ that faces concurrent traffic is
 :class:`repro_torch.serving.pool.SpGEMMPool`, which wraps one service
 instance; :class:`ServiceStats` carries the shared SLO metrics (latency
 percentiles, queue depth, batch occupancy, shed rate) for both.
-Device sets (``devices=``/``analysis_devices=``) wait for the multi-GPU
-port (ROADMAP queue 1, item 5) and raise.
+``devices=`` shards every request across a device set.
 """
 from __future__ import annotations
 
@@ -288,9 +287,11 @@ class SketchCache(dict):
 class SpGEMMService:
     """Stateful SpGEMM endpoint with plan caching across requests.
 
-    Requests run on their operands' device. ``devices`` /
-    ``analysis_devices`` (device sets) are not ported yet: anything but
-    ``None`` raises :class:`NotImplementedError`.
+    Requests run on their operands' device, or with ``devices`` (a device
+    list or count, resolved once) device-partitioned, every request's
+    sharded plan in the cache under the structure key plus the topology.
+    ``analysis_devices`` shards each plan-building request's analysis
+    (default: ``devices``); it changes no result and no cache key.
 
     ``tenant=`` on :meth:`multiply`/:meth:`run_chain` isolates a caller
     into its own plan-cache namespace and per-tenant sketch/size-feed
@@ -311,9 +312,13 @@ class SpGEMMService:
         self.stats = ServiceStats()
         # service-wide default; individual requests may override
         self.executor = executor
-        # device sets raise here until the multi-GPU port
-        self.devices = resolve_devices(devices)
-        self.analysis_devices = resolve_devices(analysis_devices)
+        # resolved once, so every request shards over one topology (and
+        # hits the same cached sharded plan)
+        self.devices = (resolve_devices(devices) if devices is not None
+                        else None)
+        self.analysis_devices = (resolve_devices(analysis_devices)
+                                 if analysis_devices is not None
+                                 else self.devices)
         # per-tenant namespaces of per-RHS buckets, keyed by B's structure
         # hash. Sketch caches hold HLL sketches (value-independent, so
         # isolation is a memory-fairness choice, not a correctness one);

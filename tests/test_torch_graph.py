@@ -247,10 +247,22 @@ def test_chain_plan_hits_and_feed_forward_match_reference():
 
 
 def test_chain_refuses_device_sets_and_a_missing_rhs():
+    """Device lists run every step sharded, equal to the unsharded chain;
+    a count of CUDA devices the machine lacks, and a missing RHS, raise."""
     _, padj = both("erdos_renyi_csr", 66, 50, 2.0)
-    for kw in ({"devices": 2}, {"analysis_devices": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            graph.ChainRunner(padj, **kw)
+    _, pc0 = both("erdos_renyi_csr", 67, 50, 2.0)
+    want = graph.ChainRunner(padj).run(pc0, 2)
+    for kw in ({"devices": ["cpu"] * 2}, {"analysis_devices": ["cpu"] * 2}):
+        got = graph.ChainRunner(padj, **kw).run(pc0, 2)
+        assert [r.n_shards for r in got.reports] == (
+            [2, 2] if "devices" in kw else [1, 1])
+        for x, y in zip(formats.to_numpy(got.final),
+                        formats.to_numpy(want.final)):
+            np.testing.assert_array_equal(x, y)
+    if torch.cuda.device_count() < 2:
+        for kw in ({"devices": 2}, {"analysis_devices": 2}):
+            with pytest.raises(ValueError, match="CUDA devices"):
+                graph.ChainRunner(padj, **kw)
     with pytest.raises(ValueError):
         graph.ChainRunner(None).step(padj)
     assert graph.structure_hash(padj) == rgraph.structure_hash(

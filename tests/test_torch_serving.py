@@ -568,11 +568,23 @@ def test_run_chain_per_tenant_feeds_match_reference():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [{"devices": 2}, {"analysis_devices": 2}])
-def test_device_sets_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.SpGEMMService(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.SpGEMMPool(serving.PoolConfig(), **kw)
+def test_device_sets_raise(mats, kw):
+    """A device list serves sharded, equal to the unsharded serial call; a
+    count of CUDA devices the machine lacks raises."""
+    a, b = mats[1][0], mats[1][3]
+    cpus = {k: ["cpu"] * v for k, v in kw.items()}
+    c, rep = serving.SpGEMMService(**cpus).multiply(a, b)
+    assert rep.analysis_shards == 2
+    assert rep.n_shards == (2 if "devices" in kw else 1)
+    assert_bit_identical(c, port_serial(a, b))
+    with serving.SpGEMMPool(serving.PoolConfig(workers=1), **cpus) as pool:
+        assert_bit_identical(pool.multiply(a, b, timeout=TIMEOUT)[0],
+                             port_serial(a, b))
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA devices"):
+            serving.SpGEMMService(**kw)
+        with pytest.raises(ValueError, match="CUDA devices"):
+            serving.SpGEMMPool(serving.PoolConfig(), **kw)
 
 
 def test_serving_imports_neither_jax_nor_reference():

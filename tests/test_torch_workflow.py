@@ -205,10 +205,20 @@ def test_warm_plan_and_many(suites):
 
 
 def test_unported_options_raise(suites):
+    """Device sets run sharded and give the unsharded C; a count of CUDA
+    devices raises on a machine that has fewer."""
     a = suites[1]["uniform_small"]
-    for kw in ({"devices": 2}, {"analysis_devices": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            workflow.ocean_spgemm(a, a, **kw)
+    c0, _ = workflow.ocean_spgemm(a, a, cache=False)
+    for kw in ({"devices": ["cpu"] * 2}, {"analysis_devices": ["cpu"] * 2}):
+        c, rep = workflow.ocean_spgemm(a, a, cache=False, **kw)
+        assert (rep.n_shards, rep.analysis_shards) == (
+            (2, 2) if "devices" in kw else (1, 2))
+        for x, y in zip(formats.to_numpy(c), formats.to_numpy(c0)):
+            np.testing.assert_array_equal(x, y)
+    if torch.cuda.device_count() < 2:
+        for kw in ({"devices": 2}, {"analysis_devices": 2}):
+            with pytest.raises(ValueError, match="CUDA devices"):
+                workflow.ocean_spgemm(a, a, **kw)
 
 
 def test_default_device_refuses_to_fall_back_to_cpu():
