@@ -4,8 +4,9 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # 2**20-row matrices (default)
-    # a quick run:
-    python3 chip_smoke.py --log2-rows 14 --graph-scale 12 --serve-log2-rows 14
+    # a quick run (phase 2f at the LM smoke configs):
+    python3 chip_smoke.py --log2-rows 14 --graph-scale 12 \
+        --serve-log2-rows 14 --lm-smoke
 
 Phases, each of which raises on failure:
 
@@ -65,6 +66,25 @@ Phases, each of which raises on failure:
    prediction plus the sampled CR's, nothing but the bin kernels when
    warm), with the shard costs, imbalance, partition seconds, analysis
    shard seconds, walls beside phase 2's and peak device memory printed;
+2f. the LM serving path (``repro_torch.models``, ``ServingEngine``) at the
+   full width of Qwen3-1.7B and OLMoE-1B-7B (``--lm-smoke``: their smoke
+   configs), random f32 weights from a seeded generator on the card, bf16
+   compute: 8 requests (prompts of 64-512 tokens and one of 1,536, the
+   chunked attention path; 16-32 new tokens) through a 4-slot engine of
+   max_len 1,600, every request complete, its tokens equal to the request
+   served alone and every step's logits within 1e-3 of them (relative to
+   the largest |logit|); prefill times, decode ms a step, tokens/s,
+   torch.profiler's device idle share of one prefill and one decode step
+   and peak device memory printed; a 2-row prefill of 1,024 tokens and 8
+   decode steps held to one full forward over the 1,032 tokens in f32 (a
+   MoE at capacity E / k, so that no token drops; the bf16 difference
+   printed); the phase frees all it allocated; ``attention_core`` at the
+   1,536-token shape beside one ``scaled_dot_product_attention`` call;
+   the MoE dispatch demo on OLMoE's first MoE layer, with the co-routing
+   C = D^T @ D through ``SpGEMMService`` twice (the second a plan-cache
+   hit; the path's kernel launches counted), C against scipy; and each
+   smoke config's prefill and decode logits on the card held to the same
+   seeded params on the CPU in f32;
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2, 2c and 2d paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
@@ -99,14 +119,17 @@ Phases, each of which raises on failure:
    device's busy time and idle share.
 
 Before the last line come ``{"serving": {...}}`` (phase 2d's numbers),
-``{"sharded": {...}}`` (phase 2e's) and ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+``{"sharded": {...}}`` (phase 2e's), ``{"lm": {...}}`` (phase 2f's) and
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits
 with a non-zero code and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -647,11 +670,12 @@ def hll_edge_cases(kl, chll, dev) -> None:
         f"{sorted(branches)}")
 
 
-def profile_call(name, a, cache, workflow) -> None:
-    """Device busy share of one warm ``ocean_spgemm`` call, and the device
-    activities (kernels, copies) that took the most time, from
-    torch.profiler. Busy time is the union of the device activities'
-    intervals: the host ops that launched them are not counted again."""
+def profile_fn(name, fn):
+    """Device busy share of one ``fn()`` call, and the device activities
+    (kernels, copies) that took the most time, from torch.profiler. Busy
+    time is the union of the device activities' intervals: the host ops
+    that launched them are not counted again. None when the profiler
+    recorded no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -659,14 +683,14 @@ def profile_call(name, a, cache, workflow) -> None:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        workflow.ocean_spgemm(a, a, cache=cache)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
         log(f"{name} profile: no device activity recorded (not measured)")
-        return
+        return None
     busy_us, end = 0.0, float("-inf")
     by_name = {}
     for s, e, key in spans:
@@ -675,11 +699,15 @@ def profile_call(name, a, cache, workflow) -> None:
         us, cnt = by_name.get(key, (0.0, 0))
         by_name[key] = (us + e - s, cnt + 1)
     busy_ms = busy_us / 1e3
+    idle = 1 - busy_ms / (wall * 1e3)
     log(f"{name} profile: wall {wall * 1e3:.1f} ms device busy "
-        f"{busy_ms:.1f} ms idle share {1 - busy_ms / (wall * 1e3):.3f} "
-        "(profiler on)")
-    for key, (us, cnt) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
+        f"{busy_ms:.1f} ms idle share {idle:.3f} (profiler on)")
+    top = sorted(by_name.items(), key=lambda r: -r[1][0])[:8]
+    for key, (us, cnt) in top:
         log(f"  {us / 1e3:9.2f} ms  x{cnt:<5d} {key[:90]}")
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms, "idle_share": idle,
+            "device_activities": len(spans),
+            "top": [[key[:90], us / 1e3, cnt] for key, (us, cnt) in top]}
 
 
 TENANTS = ("acme", "globex", "initech")
@@ -1192,6 +1220,523 @@ def sharded_phase(args, device, kd, kh, kl, mats, results, call_counts,
     return out, splans
 
 
+LM_ARCHS = ("qwen3-1.7b", "olmoe-1b-7b")
+LM_SLOTS, LM_MAX_LEN = 4, 1600
+LM_LONG_PROMPT = 1536      # 2 x 2 chunks of the chunked attention path
+LM_TF_PREFILL, LM_TF_STEPS = 1024, 8
+# stated before the first full run (PERF.md section 6): logits max
+# abs difference, relative to the largest |logit| of the reference side
+LM_BATCH_RTOL = 1e-3       # batched against alone, bf16 (predicted 0)
+LM_TF_RTOL = 1e-3          # decode steps against one full forward, f32
+# the same in bf16, a MoE config with the full forward's expert choices
+# replayed (a flipped top-k choice is a different computation, not error),
+# within this many times the full forward's own bf16-against-f32 gap
+LM_TF_BF16_FACTOR = 2.0
+LM_CPU_RTOL = 1e-4         # card against CPU, smoke configs, f32
+
+
+def lm_requests(vocab: int, seed: int):
+    """8 requests: prompts of 64-512 tokens, the sixth (a slot refill)
+    LM_LONG_PROMPT long; 16-32 new tokens each."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 513, 8)
+    lens[5] = LM_LONG_PROMPT
+    new = rng.integers(16, 33, 8)
+    return [(rng.integers(0, vocab, int(n)).astype(np.int32), int(m))
+            for n, m in zip(lens, new)]
+
+
+def serve_logged(cfg, params, specs, keep_logits: bool):
+    """Serve ``specs`` on a fresh ``ServingEngine`` (4 slots, max_len
+    1600); times each prefill and decode step (the engine waits for the
+    device at each) and, with ``keep_logits``, keeps every request's
+    logits a step on the host. The engine's model steps are wrapped by
+    functions that hold the engine's slot list, not the engine, so the
+    engine is freed as soon as it is dropped."""
+    import torch
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, params, ServeConfig(batch_slots=LM_SLOTS,
+                                                 max_len=LM_MAX_LEN))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(specs)]
+    logits = {r.uid: [] for r in reqs}
+    pre_ms, dec_ms = [], []
+    order = iter(reqs)      # slots are filled in submission order
+    slots = eng.slot_req    # filled and emptied in place by the engine
+
+    def timed(fn, out, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def wrap_prefill(step):
+        def pre(*a):
+            lo, row = timed(step, pre_ms, *a)
+            uid = next(order).uid
+            if keep_logits:
+                logits[uid].append(lo[0].float().cpu())
+            return lo, row
+        return pre
+
+    def wrap_decode(step):
+        def dec(*a):
+            active = [(i, r.uid) for i, r in enumerate(slots)
+                      if r is not None]
+            lo, caches = timed(step, dec_ms, *a)
+            if keep_logits:
+                for i, uid in active:
+                    logits[uid].append(lo[i].float().cpu())
+            return lo, caches
+        return dec
+
+    eng._prefill = wrap_prefill(eng._prefill)
+    eng._decode = wrap_decode(eng._decode)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r, (_, m) in zip(reqs, specs):
+        if not r.done or len(r.output) != m:
+            raise AssertionError(f"request {r.uid}: done {r.done}, "
+                                 f"{len(r.output)} tokens, want {m}")
+    bytes_read = sum(p.numel() * p.element_size()
+                     for p in eng.params.parameters())
+    return reqs, logits, pre_ms, dec_ms, wall, bytes_read
+
+
+def lm_profile(cfg, wparams, specs, label: str) -> dict:
+    """torch.profiler over one prefill (the first request's prompt) and
+    one decode step of a full engine (4 slots busy), as the engine runs
+    them."""
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, wparams, ServeConfig(batch_slots=LM_SLOTS,
+                                                 max_len=LM_MAX_LEN))
+    for i, (p, m) in enumerate(specs[1:LM_SLOTS]):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=m))
+    eng.step()      # fills 3 slots, warms the decode step
+    eng.submit(Request(uid=9, prompt=specs[0][0], max_new_tokens=8))
+    out = {"prefill": profile_fn(f"{label} prefill of {len(specs[0][0])} "
+                                 "tokens", eng._fill_slots),
+           "decode_step": profile_fn(f"{label} decode step, 4 slots",
+                                     eng.step)}
+    del eng
+    return out
+
+
+def lm_serve(cfg, params, label: str) -> dict:
+    """8 requests batched, then each alone: the same tokens and logits."""
+    import torch
+    from repro_torch.models import lm
+    wparams = lm.cast_weights(params, cfg.compute_dtype)   # made once
+    specs = lm_requests(cfg.vocab_size, seed=11)
+    reqs, _, pre_ms, dec_ms, wall, wbytes = serve_logged(
+        cfg, wparams, specs, keep_logits=False)
+    tokens = sum(len(r.output) for r in reqs)
+    lens = [len(p) for p, _ in specs]
+    log(f"{label} serve: 8 requests, prompts {lens}, new "
+        f"{[m for _, m in specs]}; wall {wall:.3f} s, {tokens} tokens, "
+        f"{tokens / wall:.1f} tokens/s; prefill ms "
+        f"{[round(t, 2) for t in pre_ms]}; decode {len(dec_ms)} steps, median {np.median(dec_ms):.2f} ms (min {min(dec_ms):.2f}, "
+        f"max {max(dec_ms):.2f})")
+    prof = lm_profile(cfg, wparams, specs, label)
+    reqs_b, logits_b, *_ = serve_logged(cfg, wparams, specs, keep_logits=True)
+    if [r.output for r in reqs_b] != [r.output for r in reqs]:
+        raise AssertionError(f"{label}: two batched runs differ in tokens")
+    worst = 0.0
+    for i, spec in enumerate(specs):
+        alone, logits_a, *_ = serve_logged(cfg, wparams, [spec],
+                                           keep_logits=True)
+        if alone[0].output != reqs_b[i].output:
+            raise AssertionError(f"{label}: request {i} alone emits "
+                                 f"{alone[0].output}, batched "
+                                 f"{reqs_b[i].output}")
+        got, want = torch.stack(logits_b[i]), torch.stack(logits_a[0])
+        diff = float((got - want).abs().max())
+        if diff > LM_BATCH_RTOL * float(want.abs().max()):
+            raise AssertionError(f"{label}: request {i} batched logits "
+                                 f"differ from alone by {diff}")
+        worst = max(worst, diff)
+    log(f"{label}: batched = alone for all 8 requests (tokens equal, logits "
+        f"max abs diff {worst:.3g}); first tokens "
+        f"{[r.output[0] for r in reqs]} (the reference's engine.py:81)")
+    del wparams
+    torch.cuda.empty_cache()
+    return {"prompt_lens": lens, "new_tokens": [m for _, m in specs],
+            "prefill_ms": pre_ms, "decode_steps": len(dec_ms),
+            "decode_ms_median": float(np.median(dec_ms)),
+            "decode_ms_min": min(dec_ms), "decode_ms_max": max(dec_ms),
+            "wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "batched_vs_alone_max_abs": worst, "profile": prof,
+            "weights_gb": wbytes / 1e9,
+            "decode_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3}
+
+
+class RouteLog:
+    """Stands in for ``moe.top_k`` (see ``routed``): records each MoE layer
+    call's expert choices in call order or, with ``replay`` set to a
+    recorded full forward's choices (one ``(B, S, k)`` tensor a layer),
+    returns those at the positions ``cols``, gated by this call's
+    probabilities."""
+
+    def __init__(self, real):
+        self.real = real
+        self.calls, self.replay, self.cols, self.n = [], None, None, 0
+
+    def __call__(self, probs, k):
+        if self.replay is None:
+            vals, idx = self.real(probs, k)
+            self.calls.append(idx)
+            return vals, idx
+        full = self.replay[self.n % len(self.replay)]
+        self.n += 1
+        idx = full[:, self.cols].reshape(-1, k)
+        return probs.gather(-1, idx), idx
+
+
+@contextlib.contextmanager
+def routed(spy):
+    """``spy`` in place of ``moe.top_k`` for the block."""
+    from repro_torch.models import moe
+    real, moe.top_k = moe.top_k, spy
+    try:
+        yield spy
+    finally:
+        moe.top_k = real
+
+
+def lm_teacher_forced(cfg, params, dev, dtype: str) -> dict:
+    """Prefill LM_TF_PREFILL tokens of a 2-row batch, then LM_TF_STEPS
+    decode steps of seeded tokens, each step's logits against one full
+    forward over all the tokens. A MoE config runs at capacity factor
+    E / k (capacity = tokens), so that no token drops: a drop depends on
+    which tokens are routed together, and that differs between the
+    three calls. For a MoE config also: each layer's tokens whose top-k
+    expert set differs between the prefill/decode calls and the full
+    forward (flips), the gap on the compared tokens that no layer flipped,
+    and the gap when the prefill and decode calls take the full forward's
+    expert choices (``replayed_rel``). In bf16 also the full forward in
+    bf16 against f32 (``bf16_vs_f32_rel``), the yardstick of the bf16
+    gap."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm, moe
+    from repro_torch.models import transformer as tf
+    over = {"dtype": dtype}
+    if cfg.moe_num_experts:
+        over["moe_capacity_factor"] = cfg.moe_num_experts / cfg.moe_top_k
+    c = dataclasses.replace(cfg, **over)
+    p, n = LM_TF_PREFILL, LM_TF_PREFILL + LM_TF_STEPS
+    rng = np.random.default_rng(12)
+    toks = torch.as_tensor(rng.integers(0, c.vocab_size, (2, n)), device=dev)
+    prefill, decode = lm.make_prefill_step(c), lm.make_decode_step(c)
+    spy = RouteLog(moe.top_k)
+
+    @torch.no_grad()
+    def stepwise():
+        caches = lm.init_caches(c, 2, n, dtype=c.compute_dtype, device=dev)
+        spy.cols, spy.n = slice(0, p), 0
+        lo, caches = prefill(params, caches, toks[:, :p])
+        steps = [lo]
+        for j in range(p, n):
+            spy.cols = slice(j, j + 1)
+            lo, caches = decode(params, caches, toks[:, j:j + 1],
+                                torch.full((2,), j, device=dev))
+            steps.append(lo)
+        return torch.stack(steps, 1)            # (2, 1 + steps, V)
+
+    with routed(spy), torch.no_grad():
+        hidden, _, _ = tf.apply_decoder(params, toks, c, return_hidden=True)
+        want = tf.unembed(params, hidden[:, p - 1:], c)
+        del hidden
+        full = [idx.reshape(2, n, -1) for idx in spy.calls]
+        spy.calls = []
+        got = stepwise()
+        scale = float(want.abs().max())
+        gap = (got - want).abs().amax(-1) / scale   # (2, 1 + steps)
+        out = {"max_abs": float((got - want).abs().max()),
+               "max_logit": scale, "rel": float(gap.max())}
+        if full:
+            layers = len(full)
+            pre, dec = spy.calls[:layers], spy.calls[layers:]
+            mine = [torch.cat([pre[l].reshape(2, p, -1)]
+                              + [dec[s * layers + l].reshape(2, 1, -1)
+                                 for s in range(LM_TF_STEPS)], 1)
+                    for l in range(layers)]
+            flips = torch.stack([(a.sort(-1).values != b.sort(-1).values)
+                                 .any(-1) for a, b in zip(mine, full)])
+            hit = flips[:, :, p - 1:].any(0)        # (2, 1 + steps)
+            spy.replay = full
+            replayed = (stepwise() - want).abs().max()
+            spy.replay = None
+            out.update(
+                flips_by_layer=flips.sum((1, 2)).tolist(),
+                flips_by_layer_compared=flips[:, :, p - 1:].sum((1, 2))
+                .tolist(),
+                tokens_compared=hit.numel(), tokens_flipped=int(hit.sum()),
+                no_flip_rel=float(gap[~hit].max()) if (~hit).any() else None,
+                flip_rel=float(gap[hit].max()) if hit.any() else None,
+                replayed_rel=float(replayed) / scale)
+        if dtype == "bfloat16":
+            # bf16's own reach: the full forward in bf16 against f32 (a MoE
+            # config's bf16 run on the f32 run's expert choices)
+            c32 = dataclasses.replace(c, dtype="float32")
+            spy.calls = []
+            hidden, _, _ = tf.apply_decoder(params, toks, c32,
+                                            return_hidden=True)
+            w32 = tf.unembed(params, hidden[:, p - 1:], c32)
+            spy.replay = [idx.reshape(2, n, -1) for idx in spy.calls] or None
+            spy.cols, spy.n = slice(0, n), 0
+            if spy.replay:
+                hidden, _, _ = tf.apply_decoder(params, toks, c,
+                                                return_hidden=True)
+                want = tf.unembed(params, hidden[:, p - 1:], c)
+            del hidden
+            out["bf16_vs_f32_rel"] = (float((want - w32).abs().max())
+                                      / float(w32.abs().max()))
+    del got, want
+    return out
+
+
+def lm_card_vs_cpu(arch: str, dev) -> dict:
+    """The smoke config with the same seeded params on the CPU and the
+    card: prefill (1100 tokens, the chunked path) and 8 decode steps."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get_config(arch, smoke=True)
+    models = {"cpu": lm.init_model(cfg, seed=0, device="cpu"),
+              "card": lm.init_model(cfg, seed=0, device="cpu").to(dev)}
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, cfg.vocab_size, (2, 1108))
+    out = {}
+    for where, model in models.items():
+        d = model.embed.device
+        t = torch.as_tensor(toks, device=d)
+        caches = lm.init_caches(cfg, 2, 1108, dtype=torch.float32, device=d)
+        lo, caches = lm.make_prefill_step(cfg)(model, caches, t[:, :1100])
+        steps = [lo.cpu()]
+        for j in range(1100, 1108):
+            lo, caches = lm.make_decode_step(cfg)(
+                model, caches, t[:, j:j + 1], torch.full((2,), j, device=d))
+            steps.append(lo.cpu())
+        out[where] = torch.stack(steps, 1)
+    scale = float(out["cpu"].abs().max())
+    diff = close_enough(out["card"], out["cpu"], rtol=LM_CPU_RTOL,
+                        atol=LM_CPU_RTOL * scale)
+    return {"max_abs": diff, "max_logit": scale}
+
+
+def lm_attention_yardstick(cfg, dev) -> dict:
+    """attention_core at the long prefill's shape (causal, no window, as
+    Qwen3 and OLMoE) beside one scaled_dot_product_attention call on the
+    same q/k/v (KV heads repeated to the query heads' grouping)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import attention
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    q, k, v = (torch.randn((1, LM_LONG_PROMPT, h, dh), generator=gen,
+                           device=dev).to(cfg.compute_dtype)
+               for h in (hq, hkv, hkv))
+    g = hq // hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(g, dim=2),
+                   v.repeat_interleave(g, dim=2)))
+
+    def core():
+        return attention.attention_core(q, k, v, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    with torch.no_grad():
+        diff = float((core().float() - sdpa().transpose(1, 2).float())
+                     .abs().max())
+        core_ms, sdpa_ms = time_cuda(core, 5), time_cuda(sdpa, 10)
+    return {"shape": [1, LM_LONG_PROMPT, hq, hkv, dh], "core_ms": core_ms,
+            "sdpa_ms": sdpa_ms, "max_abs_vs_sdpa": diff}
+
+
+def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
+    """The MoE dispatch demo on the OLMoE model's first MoE layer:
+    capacity plans (exact, sampled) for the demo's 32k-token 64-expert
+    top-8 router, the layer under both capacities, scatter against
+    einsum, and C = D^T @ D twice through SpGEMMService (a plan-cache hit
+    the second time), C against scipy. Returns the fields of the demo's
+    entry in the ``{"lm": ...}`` line and ``(D^T, D, plan)`` for phase 3."""
+    import torch
+    from repro_torch.core import planner, tuning
+    from repro_torch.tools import moe_dispatch
+    logits = moe_dispatch.router_logits(32_768, 64)
+    plans = moe_dispatch.plan_capacity(logits, 8)
+    sampled = plans["sampled"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    x = torch.randn((8, 128, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        res = moe_dispatch.run_dispatch(params.layers[0].ff, cfg, x,
+                                        sampled.capacity_factor)
+    torch.cuda.synchronize()
+    tuned_before = len(tuning.DEFAULT_TUNING_CACHE)
+    reset_counts(kd, kh, kl)
+    c1, rep1, c2, rep2, service, d, dt = moe_dispatch.co_routing(logits, 8,
+                                                                 dev)
+    torch.cuda.synchronize()
+    launched = path_counts["lm"] = read_counts(kd, kh, kl)
+    if not rep2.plan_cache_hit or rep1.plan_cache_hit:
+        raise AssertionError("MoE demo: the second multiply missed the "
+                             "plan cache")
+    plan = service.plan_cache.peek(planner.structure_key(
+        dt, d, service.cfg, None, True, True))
+    # both calls run the plan's bins, one launch a bin; the cold call's
+    # planning merges once a sampled CR and once an estimation prediction,
+    # sketching D once for them; the hash tuner times each rung it has not
+    # seen (3 launches a load-factor candidate): none when earlier phases
+    # have tuned every rung the plan asks for
+    tuner = 3 * len(tuning.LOAD_FACTOR_CANDIDATES) * (
+        len(tuning.DEFAULT_TUNING_CACHE) - tuned_before)
+    merges = merges_wanted(rep1) + merges_wanted(rep2)
+    want = {"dense_window": 2 * sum(not be.is_longrow for be in plan.dense),
+            "dense_longrow": 2 * sum(be.is_longrow for be in plan.dense),
+            "hash": 2 * len(plan.hash) + tuner, "hll_merge": merges,
+            "hll_sketch": int(merges > 0),
+            "count": sum(int(r.workflow == "symbolic"
+                             and not r.plan_cache_hit) for r in (rep1, rep2))}
+    if launched != want or not sum(launched.values()):
+        raise AssertionError(f"MoE demo: launches {launched}, want {want} "
+                             f"(bins {rep1.bins}, {tuner} by the hash tuner)")
+    d_sp = to_scipy(d)
+    err = check_against_scipy(c1, d_sp.T.tocsr(), "co-routing C", d_sp)
+    log(f"MoE demo: cf exact {plans['exact'].capacity_factor:.3f} "
+        f"({plans['exact_s'] * 1e3:.1f} ms), sampled "
+        f"{sampled.capacity_factor:.3f} ({plans['sampled_s'] * 1e3:.1f} ms, "
+        f"{sampled.sample_fraction:.1%} of tokens); drops "
+        f"{json.dumps(res['drops'])}; scatter vs einsum max abs "
+        f"{res['scatter_vs_einsum']:.3g}; C (64x64, nnz {c1.nnz}) = scipy "
+        f"(max abs diff {err:.3g}), workflow {rep1.workflow} bins "
+        f"{json.dumps(rep1.bins)}, launches {json.dumps(launched)} as "
+        f"wanted ({tuner} by the hash tuner); second call plan hit, setup "
+        f"{rep1.setup_seconds * 1e3:.1f} -> {rep2.setup_seconds * 1e3:.1f} "
+        "ms")
+    line = {"cf_exact": plans["exact"].capacity_factor,
+            "cf_sampled": sampled.capacity_factor,
+            "exact_ms": plans["exact_s"] * 1e3,
+            "sampled_ms": plans["sampled_s"] * 1e3,
+            "drops": res["drops"],
+            "scatter_vs_einsum_max_abs": res["scatter_vs_einsum"],
+            "c_max_abs_vs_scipy": err, "bins": rep1.bins,
+            "launches": launched, "hash_tuner_launches": tuner,
+            "plan_cache_hit": rep2.plan_cache_hit,
+            "setup_ms": [rep1.setup_seconds * 1e3,
+                         rep2.setup_seconds * 1e3]}
+    del c1, c2, service
+    return line, (dt, d, plan)
+
+
+def lm_phase(args, dev, kd, kh, kl, path_counts) -> dict:
+    """Phase 2f: the LM serving path at the full width of Qwen3-1.7B and
+    OLMoE-1B-7B (smoke configs with ``--lm-smoke``). Returns the fields of
+    the ``{"lm": ...}`` line and the MoE demo's ``(D^T, D, plan)``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    out, demo = {"models": {}}, None
+    # the phase's large segments are its own, and are all released at its
+    # end: a cached segment that the next phase splits can keep it from
+    # finding room (phase 3's torch.sparse product needs 27.6 GiB at once)
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory resident at the phase's start {resident:.2f} GiB")
+    for arch in LM_ARCHS:
+        cfg = configs.get_config(arch, smoke=args.lm_smoke)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        pbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        log(f"{arch}{' (smoke)' if args.lm_smoke else ''}: "
+            f"{cfg.param_count():,} params by the config's count, "
+            f"{pbytes / 1e9:.2f} GB in f32, drawn in "
+            f"{time.perf_counter() - t0:.2f} s")
+        m = {"params": cfg.param_count(), "param_gb": pbytes / 1e9,
+             "f32_decode_bound_ms": pbytes / HBM_BYTES_PER_S * 1e3}
+        m["serve"] = lm_serve(cfg, params, arch)
+        m["teacher_forced"] = {}
+        for dtype in ("bfloat16", "float32"):
+            tf_ = lm_teacher_forced(cfg, params, dev, dtype)
+            m["teacher_forced"][dtype] = tf_
+            log(f"{arch} teacher-forced {dtype}: {LM_TF_STEPS} decode steps "
+                f"and the prefill's last against one full forward of "
+                f"{LM_TF_PREFILL + LM_TF_STEPS} tokens: max abs diff "
+                f"{tf_['max_abs']:.3g} (max |logit| {tf_['max_logit']:.3g})")
+            if "replayed_rel" in tf_:
+                log(f"  router top-{cfg.moe_top_k} sets flipped against the "
+                    f"full forward, by layer: {tf_['flips_by_layer']} of "
+                    f"{2 * LM_TF_PREFILL + 2 * LM_TF_STEPS} tokens, "
+                    f"{tf_['flips_by_layer_compared']} of the "
+                    f"{tf_['tokens_compared']} compared; compared tokens "
+                    f"flipped in some layer {tf_['tokens_flipped']}, gap "
+                    f"relative to max |logit| on them {tf_['flip_rel']}, on "
+                    f"the others {tf_['no_flip_rel']}; with the full "
+                    f"forward's choices replayed {tf_['replayed_rel']:.3g}")
+            if "bf16_vs_f32_rel" in tf_:
+                log(f"  the full forward in bf16 against f32 (f32's expert "
+                    f"choices): {tf_['bf16_vs_f32_rel']:.3g} of max |logit|")
+        tf32, tf16 = (m["teacher_forced"][k] for k in ("float32", "bfloat16"))
+        if tf32["rel"] > LM_TF_RTOL:
+            raise AssertionError(f"{arch}: f32 decode differs from the full "
+                                 f"forward: {tf32}")
+        if (tf16.get("replayed_rel", tf16["rel"])
+                > LM_TF_BF16_FACTOR * tf16["bf16_vs_f32_rel"]):
+            raise AssertionError(f"{arch}: bf16 decode differs from the full "
+                                 "forward (expert choices replayed) by more "
+                                 f"than {LM_TF_BF16_FACTOR} x bf16's own "
+                                 f"reach: {tf16}")
+        m["attention"] = lm_attention_yardstick(cfg, dev)
+        log(f"{arch} attention at {m['attention']['shape']}: attention_core "
+            f"{m['attention']['core_ms']:.3f} ms, one "
+            f"scaled_dot_product_attention {m['attention']['sdpa_ms']:.3f} ms"
+            f" (max abs diff {m['attention']['max_abs_vs_sdpa']:.3g})")
+        if cfg.moe_num_experts:
+            out["moe_demo"], demo = lm_moe_demo(cfg, params, dev, kd, kh,
+                                                kl, path_counts)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{arch}: peak device memory {m['peak_gib']:.2f} GiB (with "
+            f"{resident:.2f} GiB of earlier phases resident); decode bound "
+            f"{m['serve']['decode_bound_ms']:.3f} ms a step at the engine's "
+            f"{m['serve']['weights_gb']:.2f} GB of weights, "
+            f"{m['f32_decode_bound_ms']:.3f} ms at f32")
+        out["models"][arch] = m
+    out["card_vs_cpu"] = {}
+    for arch in LM_ARCHS:
+        r = out["card_vs_cpu"][arch] = lm_card_vs_cpu(arch, dev)
+        log(f"{arch} smoke, card against CPU (f32, prefill 1100 + 8 decode "
+            f"steps): max abs diff {r['max_abs']:.3g} (max |logit| "
+            f"{r['max_logit']:.3g})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30 - resident
+    log(f"device memory left allocated by the phase {left:.3f} GiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    if left > 0.25:
+        raise AssertionError(f"phase 2f left {left:.2f} GiB allocated")
+    out["tolerances"] = {"batched_vs_alone_rel": LM_BATCH_RTOL,
+                         "teacher_forced_f32_rel": LM_TF_RTOL,
+                         "teacher_forced_bf16_replayed_over_bf16_vs_f32":
+                         LM_TF_BF16_FACTOR,
+                         "card_vs_cpu_rel": LM_CPU_RTOL}
+    return out, demo
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=20,
@@ -1203,6 +1748,9 @@ def main() -> int:
                     help="rows (= columns) of the serving phase's matrices")
     ap.add_argument("--shards", type=int, default=4,
                     help="logical shards of card 0 in phase 2e")
+    ap.add_argument("--lm-smoke", action="store_true",
+                    help="run phase 2f at the smoke configs of Qwen3-1.7B "
+                    "and OLMoE-1B-7B instead of their full width")
     args = ap.parse_args()
 
     import torch
@@ -1578,6 +2126,14 @@ def main() -> int:
     sharded_line, splans = sharded_phase(
         args, torch.device("cuda", 0), kd, kh, kl, mats, results, call_counts,
         (adj_t, tris, adj_m, mcl), served, path_counts)
+    done()
+
+    # ---------------- 2f. LM serving ----------------
+    done = phase("2f. LM serving at "
+                 + ("the smoke configs" if args.lm_smoke else "full width")
+                 + " of " + " and ".join(LM_ARCHS))
+    lm_line, lm_demo = lm_phase(args, torch.device("cuda", 0), kd, kh, kl,
+                                path_counts)
     counts = {k: sum(pc[k] for pc in path_counts.values())
               for k in read_counts(kd, kh, kl)}
     by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
@@ -1657,6 +2213,15 @@ def main() -> int:
                     f"{key} shard {sh.index} of {sname}", sa,
                     max(rung, key=lambda be: len(be.rows))))
                 break
+    # phase 2f's co-routing C = D^T @ D: the largest bin of each dense rung
+    # its plan holds, and its hash bins (below)
+    lm_dt, lm_d, lm_plan = lm_demo
+    for key, longrow in (("dense_window", False), ("dense_longrow", True)):
+        rung = [be for be in lm_plan.dense if be.is_longrow == longrow]
+        if rung:
+            also_dense[key].append(dense_case(
+                f"{key} LM co-routing D^T @ D", lm_dt,
+                max(rung, key=lambda be: len(be.rows)), lm_d))
 
     windowed = [be for be in plan_b.dense if not be.is_longrow]
     be_w = max(windowed, key=lambda be: len(be.rows))
@@ -1746,6 +2311,9 @@ def main() -> int:
     also_hash.append(hash_case(
         f"hash shard slice of powerlaw t{hb_big.table} ({len(hb_slice.rows)}"
         f" of {len(hb_big.rows)} rows)", a_pl, hb_slice))
+    for hb in lm_plan.hash:
+        also_hash.append(hash_case(f"hash LM co-routing t{hb.table}", lm_dt,
+                                   hb, lm_d))
     hash_edge_cases(kh, dev)
     top = hash_bins[int(np.argmax([len(h.rows) for h in
                                    sorted(plan_p.hash,
@@ -1774,22 +2342,25 @@ def main() -> int:
     rows_s = analysis._pick_sample_rows(a_band.m, OceanConfig())
     sub_s = planner.gather_rows(a_band, rows_s)
 
-    def merge_case(label, a):
+    def merge_case(label, a, sketches=None):
+        """hll_merge of A's rows over ``sketches`` (banded's plan's when
+        None)."""
+        skt = sk if sketches is None else sketches
         ind = a.indices[: a.nnz]
-        merged, est = kl.hll_merge(a.indptr, ind, sk)
-        pmerged, pest = kl.hll_merge_plain(a.indptr, ind, sk)
+        merged, est = kl.hll_merge(a.indptr, ind, skt)
+        pmerged, pest = kl.hll_merge_plain(a.indptr, ind, skt)
         torch.cuda.synchronize()
         if merged.dtype != torch.uint8 or not torch.equal(merged, pmerged):
             raise AssertionError(f"hll_merge {label}: registers differ from "
                                  "plain")
         err = close_enough(est, pest, rtol=1e-5, atol=0.0)
         del merged, est, pmerged, pest
-        ms = time_cuda(lambda: kl.hll_merge(a.indptr, ind, sk), KERNEL_RUNS)
-        dev_ms, events = device_ms(lambda: kl.hll_merge(a.indptr, ind, sk),
+        ms = time_cuda(lambda: kl.hll_merge(a.indptr, ind, skt), KERNEL_RUNS)
+        dev_ms, events = device_ms(lambda: kl.hll_merge(a.indptr, ind, skt),
                                    KERNEL_RUNS, "hll_merge_kernel")
-        plain_ms = time_cuda(lambda: kl.hll_merge_plain(a.indptr, ind, sk),
+        plain_ms = time_cuda(lambda: kl.hll_merge_plain(a.indptr, ind, skt),
                              3)
-        ra, nb1, m = a.m, sk.shape[0], sk.shape[1]
+        ra, nb1, m = a.m, skt.shape[0], skt.shape[1]
         # the sketch rows A's ids select (ids outside [0, NB+1) read the
         # sentinel row), each read once
         picked = int(torch.unique(torch.where(
@@ -1816,13 +2387,15 @@ def main() -> int:
     r0, r1 = sharded_line["band_block"]
     band_block = planner.gather_rows(a_band, np.arange(r0, r1))
     mg_block = merge_case(f"banded A block [{r0}, {r1})", band_block)
+    mg_lm = merge_case("LM co-routing D^T over D's sketches", lm_dt,
+                       lm_plan.b_sketches)
     kernels.append({
         "name": "hll_merge", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hll_merge.cu",
         "replaces": "src/repro/kernels/hll.py:108",
         "launches": counts["hll_merge"],
         "launches_by_path": by_path["hll_merge"], **mg_band,
-        "library_ms": None, "also": [mg_sample, mg_block]})
+        "library_ms": None, "also": [mg_sample, mg_block, mg_lm]})
 
     # hll_sketch: B's sketches, as the analysis builds them
     def sketch_case(label, b, m):
@@ -1864,6 +2437,8 @@ def main() -> int:
     sk_more += [sketch_case("banded", a_band, m) for m in (64, 128)]
     sk_more.append(sketch_case(f"banded B block [{r0}, {r1})", band_block,
                                plan_b.m_regs))
+    sk_more.append(sketch_case("LM co-routing D", lm_d, lm_plan.m_regs))
+    del lm_dt, lm_d, lm_plan, lm_demo
     del band_block
     hll_edge_cases(kl, chll, dev)
     kernels.append({
@@ -1995,14 +2570,17 @@ def main() -> int:
     # recorded only some of their launches when they came after these
     done = phase("5. torch.profiler over one more warm call per matrix")
     for name, a in mats:
-        profile_call(name, a, caches[name], workflow)
+        profile_fn(name, lambda: workflow.ocean_spgemm(a, a,
+                                                       cache=caches[name]))
     done()
 
     log(f"{smi}")
     serving_line["card"] = smi
     sharded_line["card"] = smi
+    lm_line["card"] = smi
     print(json.dumps({"serving": serving_line}))
     print(json.dumps({"sharded": sharded_line}))
+    print(json.dumps({"lm": lm_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

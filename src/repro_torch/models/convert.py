@@ -1,0 +1,64 @@
+"""Weight carrier: the reference's parameter and cache trees -> the port's.
+
+The reference (``repro.models``) stacks the layers of each position of
+the repeating layer period over the period's repeats: scanned layer ``i``
+is ``blocks[i % period]`` at index ``i // period``, and the ``tail``
+layers follow at ``n_scan * period + t``. The port keeps one module a
+layer in layer order. Trees are nested dicts/lists of numpy arrays (for
+example ``jax.tree_util.tree_map(np.asarray, init_model(key, cfg)[0])``),
+so this module needs no JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from . import transformer as tf
+from .config import ModelConfig
+
+
+def reference_layers(cfg: ModelConfig, tree) -> List[dict]:
+    """The per-layer subtrees of a reference params or cache tree, in layer
+    order (``tree['blocks']`` stacked by period position, then
+    ``tree['tail']``)."""
+    plan = tf.StackPlan.from_config(cfg)
+
+    def take(sub, n):
+        if isinstance(sub, dict):
+            return {key: take(v, n) for key, v in sub.items()}
+        return np.asarray(sub)[n]
+
+    layers = [take(tree["blocks"][i % plan.period], i // plan.period)
+              for i in range(plan.n_scan * plan.period)]
+    return layers + list(tree["tail"])
+
+
+def _flatten(sub, prefix: str, out: Dict[str, np.ndarray]):
+    for key, v in sub.items():
+        name = f"{prefix}.{key}" if prefix else key
+        if isinstance(v, dict):
+            _flatten(v, name, out)
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def from_reference(cfg: ModelConfig, tree, device="cuda") -> tf.Decoder:
+    """The port's model holding the reference's parameters ``tree``."""
+    flat = _flatten({k: v for k, v in tree.items()
+                     if k not in ("blocks", "tail")}, "", {})
+    for i, layer in enumerate(reference_layers(cfg, tree)):
+        _flatten(layer, f"layers.{i}", flat)
+    model = tf.Decoder(cfg, device="meta")
+    model.load_state_dict({n: torch.tensor(a, device=device)
+                           for n, a in flat.items()}, assign=True)
+    return model
+
+
+def caches_from_reference(cfg: ModelConfig, caches, device="cuda"):
+    """The reference's decoder cache tree as the port's per-layer list."""
+    return [{n: torch.tensor(np.asarray(c), device=device)
+             for n, c in layer.items()}
+            for layer in reference_layers(cfg, caches)]
