@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # 2**20-row matrices (default)
-    # a quick run (phase 2f at the LM smoke configs):
+    # a quick run (phases 2f and 2g at the LM smoke configs):
     python3 chip_smoke.py --log2-rows 14 --graph-scale 12 \
         --serve-log2-rows 14 --lm-smoke
 
@@ -84,7 +84,23 @@ Phases, each of which raises on failure:
    C = D^T @ D through ``SpGEMMService`` twice (the second a plan-cache
    hit; the path's kernel launches counted), C against scipy; and each
    smoke config's prefill and decode logits on the card held to the same
-   seeded params on the CPU in f32;
+   seeded params on the CPU in f32; OLMoE's batched against alone under
+   the scatter dispatch printed (predicted 0);
+2g. the LM training path (``repro_torch.optim``, ``models.lm``'s train
+   step, ``data``, ``checkpoint``, ``train``): Qwen3-1.7B at full width
+   and depth through the train CLI (``repro_torch.launch.train.main``, 8
+   steps of 2 x 1,024 tokens, remat ``dots``) and OLMoE-1B-7B at full
+   width cut to 4 of its 16 layers through ``make_train_step`` and
+   ``train_loop`` (``--lm-smoke``: their smoke configs), every loss finite
+   and the last below the first; median step ms, tokens/s, forward +
+   backward against optimizer ms, the step's bound, the optimizer's byte
+   bound, torch.profiler's device idle share of one step and peak memory
+   printed; at the smoke configs (f32) a train step on the card held to
+   the CPU's (1e-4), a loop interrupted at step 4 and resumed to 8 held
+   to an uninterrupted one (1e-5), the loss below 0.8x its start in 60
+   steps; the bf16 readings of phase 2f and a Qwen3 bf16 train step's
+   loss and grad norm with the bf16 reduced-precision-reduction flag on
+   and off; the phase frees all it allocated;
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2, 2c and 2d paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
@@ -114,12 +130,15 @@ Phases, each of which raises on failure:
    launch; HLL: empty, out-of-range, repeated, 12,000-id and largest-rho
    rows, one-row launches, seeds 0 and 7, each branch of the estimate);
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
-   against scipy, which also drives the ESC and upper-bound paths;
+   against scipy, which also drives the ESC and upper-bound paths; Cohen's
+   min-rank estimator on banded's A on the card, its first rows held to
+   the CPU;
 5. one more warm call per phase-2 matrix under torch.profiler gives the
    device's busy time and idle share.
 
 Before the last line come ``{"serving": {...}}`` (phase 2d's numbers),
-``{"sharded": {...}}`` (phase 2e's), ``{"lm": {...}}`` (phase 2f's) and
+``{"sharded": {...}}`` (phase 2e's), ``{"lm": {...}}`` (phase 2f's),
+``{"train": {...}}`` (phase 2g's and the Cohen check's) and
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits
 with a non-zero code and prints no result.
@@ -1327,6 +1346,29 @@ def lm_profile(cfg, wparams, specs, label: str) -> dict:
     return out
 
 
+def batched_vs_alone(cfg, wparams, specs, label: str):
+    """The requests batched, then each alone: the same tokens, and logits
+    within LM_BATCH_RTOL of the largest alone. Returns the batched
+    requests and the largest logit difference."""
+    import torch
+    reqs_b, logits_b, *_ = serve_logged(cfg, wparams, specs, keep_logits=True)
+    worst = 0.0
+    for i, spec in enumerate(specs):
+        alone, logits_a, *_ = serve_logged(cfg, wparams, [spec],
+                                           keep_logits=True)
+        if alone[0].output != reqs_b[i].output:
+            raise AssertionError(f"{label}: request {i} alone emits "
+                                 f"{alone[0].output}, batched "
+                                 f"{reqs_b[i].output}")
+        got, want = torch.stack(logits_b[i]), torch.stack(logits_a[0])
+        diff = float((got - want).abs().max())
+        if diff > LM_BATCH_RTOL * float(want.abs().max()):
+            raise AssertionError(f"{label}: request {i} batched logits "
+                                 f"differ from alone by {diff}")
+        worst = max(worst, diff)
+    return reqs_b, worst
+
+
 def lm_serve(cfg, params, label: str) -> dict:
     """8 requests batched, then each alone: the same tokens and logits."""
     import torch
@@ -1343,26 +1385,25 @@ def lm_serve(cfg, params, label: str) -> dict:
         f"{[round(t, 2) for t in pre_ms]}; decode {len(dec_ms)} steps, median {np.median(dec_ms):.2f} ms (min {min(dec_ms):.2f}, "
         f"max {max(dec_ms):.2f})")
     prof = lm_profile(cfg, wparams, specs, label)
-    reqs_b, logits_b, *_ = serve_logged(cfg, wparams, specs, keep_logits=True)
+    reqs_b, worst = batched_vs_alone(cfg, wparams, specs, label)
     if [r.output for r in reqs_b] != [r.output for r in reqs]:
         raise AssertionError(f"{label}: two batched runs differ in tokens")
-    worst = 0.0
-    for i, spec in enumerate(specs):
-        alone, logits_a, *_ = serve_logged(cfg, wparams, [spec],
-                                           keep_logits=True)
-        if alone[0].output != reqs_b[i].output:
-            raise AssertionError(f"{label}: request {i} alone emits "
-                                 f"{alone[0].output}, batched "
-                                 f"{reqs_b[i].output}")
-        got, want = torch.stack(logits_b[i]), torch.stack(logits_a[0])
-        diff = float((got - want).abs().max())
-        if diff > LM_BATCH_RTOL * float(want.abs().max()):
-            raise AssertionError(f"{label}: request {i} batched logits "
-                                 f"differ from alone by {diff}")
-        worst = max(worst, diff)
     log(f"{label}: batched = alone for all 8 requests (tokens equal, logits "
         f"max abs diff {worst:.3g}); first tokens "
         f"{[r.output[0] for r in reqs]} (the reference's engine.py:81)")
+    scatter = None
+    if cfg.moe_num_experts:
+        # the einsum combine groups a token's terms by its capacity slot,
+        # which the batch's other rows decide; scatter gathers its own rows
+        from repro_torch.models import moe
+        mode = moe.DISPATCH_MODE
+        moe.set_dispatch_mode("scatter")
+        try:
+            _, scatter = batched_vs_alone(cfg, wparams, specs, label)
+        finally:
+            moe.set_dispatch_mode(mode)
+        log(f"{label}: under the scatter dispatch batched against alone "
+            f"max abs diff {scatter:.3g} (predicted 0)")
     del wparams
     torch.cuda.empty_cache()
     return {"prompt_lens": lens, "new_tokens": [m for _, m in specs],
@@ -1371,7 +1412,8 @@ def lm_serve(cfg, params, label: str) -> dict:
             "decode_ms_min": min(dec_ms), "decode_ms_max": max(dec_ms),
             "wall_s": wall, "tokens": tokens,
             "tokens_per_s": tokens / wall,
-            "batched_vs_alone_max_abs": worst, "profile": prof,
+            "batched_vs_alone_max_abs": worst,
+            "scatter_batched_vs_alone_max_abs": scatter, "profile": prof,
             "weights_gb": wbytes / 1e9,
             "decode_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3}
 
@@ -1647,6 +1689,7 @@ def lm_phase(args, dev, kd, kh, kl, path_counts) -> dict:
     from repro_torch import configs
     from repro_torch.models import lm
     out, demo = {"models": {}}, None
+    out["bf16_reduced_precision_reduction"] = bf16_reduction_flag()
     # the phase's large segments are its own, and are all released at its
     # end: a cached segment that the next phase splits can keep it from
     # finding room (phase 3's torch.sparse product needs 27.6 GiB at once)
@@ -1737,6 +1780,420 @@ def lm_phase(args, dev, kd, kh, kl, path_counts) -> dict:
     return out, demo
 
 
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 1024
+TRAIN_OLMOE_LAYERS = 4       # of 16: 4 x 27.26 GB of f32 train state at 16
+TRAIN_RESTART_TOL = 1e-5     # resumed against uninterrupted, on the card
+BF16_PEAK_OPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def bf16_reduction_flag(value=None) -> bool:
+    """``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    (set first when ``value`` is given)."""
+    import torch
+    if value is not None:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            value
+    return torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Matmul operations of one train step: the forward's products (MoE
+    layers at each token's top-k experts, causal attention at the (query,
+    key) pairs on or below the diagonal) and the backward's at twice the
+    forward's."""
+    d, dh, hq, hkv = cfg.d_model, cfg.head_dim_, cfg.num_heads, \
+        cfg.num_kv_heads
+    t = batch * seq
+    fwd = 2 * t * d * cfg.vocab_size                       # unembed
+    for i in range(cfg.num_layers):
+        fwd += 2 * t * (2 * d * hq * dh + 2 * d * hkv * dh)
+        fwd += 2 * 2 * batch * hq * dh * seq * (seq + 1) / 2
+        if cfg.is_moe_layer(i):
+            ff = cfg.moe_d_ff or cfg.d_ff
+            fwd += 2 * t * (d * cfg.moe_num_experts
+                            + cfg.moe_top_k * 3 * d * ff)
+        elif cfg.d_ff:
+            fwd += 2 * t * 3 * d * cfg.d_ff
+    return 3 * fwd
+
+
+def host_ms(fn, runs: int) -> list:
+    """Milliseconds of each of ``runs`` calls of ``fn``, host clock between
+    device synchronisations."""
+    import torch
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def train_readings(label, cfg, res, dev, lr: float) -> dict:
+    """The numbers of a full-width run: every loss finite and the last
+    below the first; median step ms after the first, tokens/s, forward +
+    backward against optimizer ms, bounds, torch.profiler's device idle
+    share of one more step. Further steps train the run's own state."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_update
+    hist = res["metrics_history"]
+    losses = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    params, state = res["params"], res["opt_state"]
+    times = [t * 1e3 for t in res["step_times_s"]]
+    step_ms = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    toks = torch.as_tensor(train_tokens(cfg, TRAIN_STEPS), device=dev)
+    opt_cfg = AdamWConfig(lr=lr)
+    box = {}
+
+    def fwd_bwd():
+        box["g"] = lm.grads_of(params, toks, cfg)[0]
+
+    fb_ms = host_ms(fwd_bwd, 2)
+    opt_ms = host_ms(lambda: adamw_update(params, box["g"], state, opt_cfg,
+                                          0.5), 2)
+    box.clear()
+    step = lm.make_train_step(cfg, opt_cfg,
+                              schedule_kwargs=train.schedule_for(TRAIN_STEPS))
+    prof = profile_fn(f"{label} train step",
+                      lambda: step(params, state, {"tokens": toks}))
+    n = sum(p.numel() for p in params.parameters())
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    opt_bound = 28 * n / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = bound(28 * n, flops, BF16_PEAK_OPS_PER_S)
+    out = {"losses": losses, "aux_losses": [h["aux_loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": times, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "fwd_bwd_ms": fb_ms, "optimizer_ms": opt_ms,
+           "params": n, "step_flops": flops, "bound_ms": b_ms,
+           "bound_by": b_by, "optimizer_bound_ms": opt_bound,
+           "profile": prof}
+    log(f"{label} train: losses {[round(x, 4) for x in losses]}; aux "
+        f"{[round(x, 4) for x in out['aux_losses']]}; step ms "
+        f"{[round(t, 1) for t in times]}, median after the first "
+        f"{step_ms:.1f} ({out['tokens_per_s']:.0f} tokens/s); forward + "
+        f"backward {[round(t, 1) for t in fb_ms]} ms, optimizer "
+        f"{[round(t, 1) for t in opt_ms]} ms; bound {b_ms:.2f} ms by "
+        f"{b_by} ({flops:.3g} operations at bf16's peak, optimizer "
+        f"{opt_bound:.2f} ms at 28 B a parameter, {n:,} parameters)")
+    return out
+
+
+def data_config(cfg, batch=None, seq=None, seed=0):
+    """The full-width runs' data (TRAIN_BATCH x TRAIN_SEQ unless given)."""
+    from repro_torch.data import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq or TRAIN_SEQ,
+                      global_batch=batch or TRAIN_BATCH, seed=seed)
+
+
+def train_tokens(cfg, step: int) -> np.ndarray:
+    """The full-width runs' batch of ``step`` (the CLI's data, seed 0)."""
+    from repro_torch.data import SyntheticLM
+    return SyntheticLM(data_config(cfg)).batch(step)
+
+
+def free_device():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_qwen3(args, dev) -> dict:
+    """Qwen3-1.7B at full width and depth through the port's train CLI."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    cfg = configs.get_config("qwen3-1.7b", smoke=args.lm_smoke)
+    argv = ["--arch", "qwen3-1.7b", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--remat", "dots", "--log-every", "1", "--device", str(dev)]
+    if args.lm_smoke:
+        argv.append("--smoke")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = train_readings("qwen3-1.7b", cfg, res, dev, lr=3e-4)
+    out.update(cli=" ".join(["python -m repro_torch.launch.train"] + argv),
+               wall_s=wall, peak_gib=peak,
+               peak_gib_with_readings=torch.cuda.max_memory_allocated()
+               / 2**30)
+    log(f"qwen3-1.7b: the CLI's {TRAIN_STEPS} steps in {wall:.2f} s, peak "
+        f"device memory {peak:.2f} GiB")
+    del res
+    free_device()
+    return out
+
+
+def train_olmoe(args, dev) -> dict:
+    """OLMoE-1B-7B at full width, cut to TRAIN_OLMOE_LAYERS of its 16
+    layers, through make_train_step and train_loop."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainLoopConfig, train_loop
+    full = configs.get_config("olmoe-1b-7b", smoke=args.lm_smoke)
+    cfg = dataclasses.replace(full, num_layers=min(TRAIN_OLMOE_LAYERS,
+                                                   full.num_layers))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, seed=0, device=dev)
+    step = lm.make_train_step(cfg, AdamWConfig(lr=3e-4), remat="dots",
+                              schedule_kwargs=train.schedule_for(
+                                  TRAIN_STEPS))
+    res = train_loop(step, params, adamw_init(params), data_config(cfg),
+                     TrainLoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+                     log_fn=log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    out = train_readings("olmoe-1b-7b", cfg, res, dev, lr=3e-4)
+    out.update(wall_s=wall, peak_gib=peak,
+               peak_gib_with_readings=torch.cuda.max_memory_allocated()
+               / 2**30,
+               reduced={"num_layers": [full.num_layers, cfg.num_layers]})
+    log(f"olmoe-1b-7b ({cfg.num_layers} of {full.num_layers} layers): "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s, peak device memory "
+        f"{peak:.2f} GiB")
+    del res
+    free_device()
+    return out
+
+
+def train_smoke_checks(arch: str, dev) -> dict:
+    """At the smoke config (f32): one train step on the card against the
+    same step on the CPU; a loop interrupted at step 4 and resumed to 8
+    against an uninterrupted one, on the card; the loss below 0.8x its
+    start in 60 steps."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cfg = configs.get_config(arch, smoke=True)
+    toks = np.random.default_rng(16).integers(0, cfg.vocab_size, (4, 33))
+    step = lm.make_train_step(cfg, AdamWConfig(lr=1e-3),
+                              schedule_kwargs={"warmup": 2, "total": 20})
+    ran = {}
+    for where in ("cpu", "card"):
+        model = lm.init_model(cfg, seed=0, device="cpu")
+        d = dev if where == "card" else torch.device("cpu")
+        model = model.to(d)
+        t = torch.as_tensor(toks, device=d)
+        grads, _, _ = lm.grads_of(model, t, cfg)
+        _, _, metrics = step(model, adamw_init(model), {"tokens": t})
+        ran[where] = ({n: g.cpu() for n, g in grads.items()},
+                      {k: float(v) for k, v in metrics.items()})
+    out = {"grad_max_rel": 0.0}
+    for k in ("loss", "aux_loss", "grad_norm"):
+        got, want = ran["card"][1][k], ran["cpu"][1][k]
+        if abs(got - want) > LM_CPU_RTOL * abs(want):
+            raise AssertionError(f"{arch} smoke: card {k} {got}, CPU {want}")
+        out[f"{k}_rel"] = abs(got - want) / max(abs(want), 1e-30)
+    for n, want in ran["cpu"][0].items():
+        scale = float(want.abs().max())
+        err = float((ran["card"][0][n] - want).abs().max())
+        if err > LM_CPU_RTOL * scale:
+            raise AssertionError(f"{arch} smoke: grad {n} differs by {err} "
+                                 f"(max |g| {scale})")
+        out["grad_max_rel"] = max(out["grad_max_rel"], err / max(scale,
+                                                                 1e-30))
+    data = data_config(cfg, batch=4, seq=16, seed=1)
+    ck = tempfile.mkdtemp(prefix="train_smoke_")
+    try:
+        def fresh():
+            model = lm.init_model(cfg, seed=0, device=dev)
+            return model, adamw_init(model)
+
+        quiet = dict(log_fn=lambda *_: None)
+        whole = train_loop(step, *fresh(), data,
+                           TrainLoopConfig(total_steps=8, log_every=100),
+                           **quiet)
+        train_loop(step, *fresh(), data,
+                   TrainLoopConfig(total_steps=4, checkpoint_dir=ck,
+                                   checkpoint_every=4, log_every=100),
+                   **quiet)
+        resumed = train_loop(step, *fresh(), data,
+                             TrainLoopConfig(total_steps=8,
+                                             checkpoint_dir=ck,
+                                             checkpoint_every=4,
+                                             log_every=100), **quiet)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if resumed["resumed_from"] != 4:
+        raise AssertionError(f"{arch} smoke: resumed from "
+                             f"{resumed['resumed_from']}")
+    out["restart_max_abs"] = max(
+        close_enough(b.detach(), a.detach(), rtol=TRAIN_RESTART_TOL,
+                     atol=TRAIN_RESTART_TOL)
+        for a, b in zip(whole["params"].parameters(),
+                        resumed["params"].parameters()))
+    model = lm.init_model(cfg, seed=0, device=dev)
+    fall = train_loop(lm.make_train_step(cfg, AdamWConfig(lr=3e-3),
+                                         remat="none",
+                                         schedule_kwargs={"warmup": 5,
+                                                          "total": 60}),
+                      model, adamw_init(model),
+                      data_config(cfg, batch=8, seq=32, seed=2),
+                      TrainLoopConfig(total_steps=60, log_every=10),
+                      log_fn=lambda *_: None)["metrics_history"]
+    out["loss_60"] = [fall[0]["loss"], fall[-1]["loss"]]
+    if not fall[-1]["loss"] < 0.8 * fall[0]["loss"]:
+        raise AssertionError(f"{arch} smoke: loss {out['loss_60']} did not "
+                             "fall below 0.8x its start in 60 steps")
+    log(f"{arch} smoke (f32): card against CPU loss / aux / grad norm "
+        f"rel {out['loss_rel']:.3g} / {out['aux_loss_rel']:.3g} / "
+        f"{out['grad_norm_rel']:.3g}, gradients {out['grad_max_rel']:.3g} of "
+        f"each leaf's max; restart at 4 of 8 = uninterrupted (max abs "
+        f"{out['restart_max_abs']:.3g}); loss {out['loss_60'][0]:.4f} -> "
+        f"{out['loss_60'][1]:.4f} in 60 steps")
+    return out
+
+
+def bf16_flag_readings(args, dev) -> dict:
+    """Phase 2f's bf16 readings (each model's bf16-against-f32 gap of the
+    full forward, the stepwise gap, replayed for a MoE) and a Qwen3 bf16
+    train step's loss and grad norm with the bf16 reduced-precision-
+    reduction flag on, then off; then decode ms of a 4-slot engine on,
+    off, on, off; the flag is then set back to what it was."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import global_norm
+    was = bf16_reduction_flag()
+    out = {}
+    try:
+        for arch in LM_ARCHS:
+            cfg = configs.get_config(arch, smoke=args.lm_smoke)
+            params = lm.init_model(cfg, seed=0, device=dev)
+            wparams = lm.cast_weights(params, cfg.compute_dtype)
+            toks = torch.as_tensor(train_tokens(cfg, 0), device=dev)
+            specs = [(p[:64], 16) for p, _ in
+                     lm_requests(cfg.vocab_size, seed=17)[:LM_SLOTS]]
+            out[arch] = {}
+            for flag in (True, False):
+                r = {"flag_read_back": bf16_reduction_flag(flag)}
+                tf_ = lm_teacher_forced(cfg, params, dev, "bfloat16")
+                r.update(bf16_vs_f32_rel=tf_["bf16_vs_f32_rel"],
+                         stepwise_rel=tf_["rel"],
+                         replayed_rel=tf_.get("replayed_rel"))
+                if arch == "qwen3-1.7b":
+                    grads, loss, _ = lm.grads_of(params, toks, cfg)
+                    r["train_loss"] = float(loss)
+                    r["train_grad_norm"] = float(global_norm(grads))
+                    del grads
+                out[arch][str(flag).lower()] = r
+            for flag in (True, False, True, False):
+                bf16_reduction_flag(flag)
+                *_, dec_ms, _, _ = serve_logged(cfg, wparams, specs,
+                                                keep_logits=False)
+                out[arch][str(flag).lower()].setdefault(
+                    "decode_ms_median", []).append(float(np.median(dec_ms)))
+            for flag in ("true", "false"):
+                log(f"{arch} bf16 with reduced-precision reductions "
+                    f"{'on' if flag == 'true' else 'off'}: "
+                    f"{json.dumps(out[arch][flag])}")
+            del params, wparams
+            free_device()
+    finally:
+        bf16_reduction_flag(was)
+    return out
+
+
+COHEN_K = 16
+COHEN_CPU_ROWS = 1 << 15    # the CPU's share: 29 s for all 2^20 rows
+
+
+def cohen_check(a, chll) -> dict:
+    """Cohen's min-rank estimator (``cohen_build``, ``cohen_merge``,
+    ``cohen_estimate``) on ``a @ a`` on the card, the first
+    COHEN_CPU_ROWS rows held to the CPU (one thread) within 1e-6
+    relative: the minima of B's rows and, for the A rows whose columns
+    those B rows cover, the merged minima and the estimates."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mins = chll.cohen_build(a.indptr, a.indices, k=COHEN_K, num_rows=a.m,
+                            n_cols=a.n)
+    merged = chll.cohen_merge(a.indptr, a.indices, mins, num_rows_a=a.m)
+    est = chll.cohen_estimate(merged, clip_max=a.n)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    r = COHEN_CPU_ROWS
+    indptr = a.indptr[: r + 1].cpu()
+    indices = a.indices[: int(indptr[-1])].cpu()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        want_mins = chll.cohen_build(indptr, indices, k=COHEN_K,
+                                     num_rows=r, n_cols=a.n)
+        # A rows whose every column is a B row computed here
+        last_col = torch.zeros(r, dtype=torch.long)
+        rows = chll.row_ids_from_indptr(indptr)
+        last_col.scatter_reduce_(0, rows, indices.long(), "amax")
+        keep = int((last_col < r).long().cumprod(0).sum())
+        want_merged = chll.cohen_merge(indptr[: keep + 1], indices, want_mins,
+                                       num_rows_a=keep)
+        want_est = chll.cohen_estimate(want_merged, clip_max=a.n)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    errs = [close_enough(g.cpu(), w, rtol=1e-6, atol=0) for g, w in (
+        (mins[:r], want_mins), (merged[:keep], want_merged),
+        (est[:keep], want_est))]
+    line = {"k": COHEN_K, "rows": a.m, "nnz": a.nnz, "cpu_rows": r,
+            "cpu_merged_rows": keep, "max_abs": errs, "card_s": card_s,
+            "cpu_s": cpu_s, "estimate_mean": float(est.mean())}
+    log(f"Cohen estimator on banded A @ A (k {COHEN_K}, {a.m} rows, "
+        f"{card_s:.3f} s on the card): the first {r} rows' minima and "
+        f"{keep} rows' merged minima and estimates = CPU ({cpu_s:.2f} s, "
+        f"one thread; max abs diff {errs}); mean estimate "
+        f"{line['estimate_mean']:.2f}")
+    del mins, merged, est
+    return line
+
+
+def train_phase(args, dev) -> dict:
+    """Phase 2g: the LM training path. Returns the ``{"train": ...}``
+    line."""
+    import torch
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory resident at the phase's start {resident:.2f} GiB; "
+        f"bf16 reduced-precision reductions {bf16_reduction_flag()}")
+    out = {"resident_gib": resident, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat": "dots",
+           "bf16_reduced_precision_reduction": bf16_reduction_flag()}
+    out["qwen3-1.7b"] = train_qwen3(args, dev)
+    out["olmoe-1b-7b"] = train_olmoe(args, dev)
+    out["smoke"] = {arch: train_smoke_checks(arch, dev) for arch in LM_ARCHS}
+    out["bf16_flag"] = bf16_flag_readings(args, dev)
+    free_device()
+    left = torch.cuda.memory_allocated() / 2**30 - resident
+    log(f"device memory left allocated by the phase {left:.3f} GiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    if left > 0.25:
+        raise AssertionError(f"phase 2g left {left:.2f} GiB allocated")
+    out["tolerances"] = {"card_vs_cpu_rel": LM_CPU_RTOL,
+                         "restart_abs": TRAIN_RESTART_TOL}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=20,
@@ -1749,8 +2206,8 @@ def main() -> int:
     ap.add_argument("--shards", type=int, default=4,
                     help="logical shards of card 0 in phase 2e")
     ap.add_argument("--lm-smoke", action="store_true",
-                    help="run phase 2f at the smoke configs of Qwen3-1.7B "
-                    "and OLMoE-1B-7B instead of their full width")
+                    help="run phases 2f and 2g at the smoke configs of "
+                    "Qwen3-1.7B and OLMoE-1B-7B instead of their full width")
     args = ap.parse_args()
 
     import torch
@@ -2140,6 +2597,13 @@ def main() -> int:
                for k in counts}
     log(f"launches on every path: {json.dumps(counts)}")
     log(f"launches by path: {json.dumps(by_path)}")
+    done()
+
+    # ---------------- 2g. LM training ----------------
+    done = phase("2g. LM training at "
+                 + ("the smoke configs" if args.lm_smoke else "full width")
+                 + " of " + " and ".join(LM_ARCHS))
+    train_line = train_phase(args, torch.device("cuda", 0))
     done()
 
     # ---------------- 3. kernels vs plain ----------------
@@ -2563,6 +3027,7 @@ def main() -> int:
             err = check_against_scipy(c, to_scipy(a), f"suite {name}")
         log(f"suite {name}: {rep.workflow} bins {json.dumps(rep.bins)} "
             f"max abs diff {err:.3g}")
+    cohen_line = cohen_check(a_band, chll)
     done()
 
     # ---------------- 5. device busy share ----------------
@@ -2578,9 +3043,12 @@ def main() -> int:
     serving_line["card"] = smi
     sharded_line["card"] = smi
     lm_line["card"] = smi
+    train_line["card"] = smi
     print(json.dumps({"serving": serving_line}))
     print(json.dumps({"sharded": sharded_line}))
     print(json.dumps({"lm": lm_line}))
+    train_line["cohen"] = cohen_line
+    print(json.dumps({"train": train_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ def resolve_devices(devices=None) -> Tuple[torch.device, ...]:
     ``ValueError`` when there are fewer. A sequence of devices or strings
     is taken in order, repeats allowed (logical shards of one card, or
     ``["cpu"] * n``); a CUDA device it names must exist. A device mesh is
-    refused until ``launch/mesh.py`` is ported (ROADMAP queue 1, item 8).
+    refused until ``launch/mesh.py`` is ported (ROADMAP queue 1, item 8e).
     """
     if devices is None or isinstance(devices, int):
         have = _cuda_count()
@@ -46,7 +46,7 @@ def resolve_devices(devices=None) -> Tuple[torch.device, ...]:
                         f"{devices!r}; pass [{devices!r}]")
     if hasattr(devices, "mesh") and hasattr(devices, "device_type"):
         raise TypeError("device meshes wait for the port of launch/mesh.py "
-                        "(ROADMAP queue 1, item 8); pass a device list")
+                        "(ROADMAP queue 1, item 8e); pass a device list")
     devs = tuple(torch.device(d) for d in devices)
     if not devs:
         raise ValueError("empty device set")

@@ -6,7 +6,9 @@ with the product split into 16-bit halves (no step can overflow) and
 :func:`_rho` takes an exact integer bit length. Registers here are int32 and
 equal to the reference's bit for bit; the kernel wrappers
 (``kernels.hll``) hand them on as one byte each, and
-:func:`estimate_cardinality` takes either.
+:func:`estimate_cardinality` takes either. Cohen's min-rank estimator
+(:func:`cohen_build`, :func:`cohen_merge`, :func:`cohen_estimate`), the
+paper's comparison point, is host-side torch with no kernel.
 """
 from __future__ import annotations
 
@@ -137,6 +139,62 @@ def estimate_cardinality(sketches: torch.Tensor,
     e_small = m * torch.log(ratio)
     # gate on the linear-counting estimate (continuous at the 2.5m cutoff)
     e = torch.where((e_small <= 2.5 * m) & (v > 0), e_small, e_raw)
+    if clip_max is not None:
+        e = torch.clamp(e, 0.0, float(clip_max))
+    return e
+
+
+# ---------------------------------------------------------------------------
+# Cohen's estimator (paper §5.3 comparison): exponential min-rank sketches.
+# k independent Exp(1) ranks per column of B; a set's min-rank vector
+# estimates its cardinality as (k - 1) / sum(min_ranks).
+# ---------------------------------------------------------------------------
+
+def _segment_min(values: torch.Tensor, seg: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """Per-segment minimum of ``values`` (n,) into (num_rows,) f32; an
+    empty segment is ``inf``."""
+    out = torch.full((num_rows,), float("inf"), device=values.device)
+    return out.scatter_reduce_(0, seg, values, "amin", include_self=True)
+
+
+def cohen_build(indptr, indices, *, k: int, num_rows: int, n_cols: int,
+                seed: int = 0) -> torch.Tensor:
+    """Per-row min-rank sketches: (num_rows, k) f32. Replica ``r`` ranks
+    column ``j`` by ``-log(u)``, ``u = hash32(j, seed * 131 + r + 1) /
+    2**32`` clipped to [1e-12, 1]; one replica at a time, so the ranks
+    take the nnz's size, not k times it."""
+    row = row_ids_from_indptr(indptr[: num_rows + 1])
+    j = indices[: row.shape[0]]
+    mins = torch.empty((num_rows, k), device=indices.device)
+    for r in range(k):
+        u = hash32(j, seed=seed * 131 + r + 1).float() / 4294967296.0
+        mins[:, r] = _segment_min(-torch.log(torch.clamp(u, 1e-12, 1.0)),
+                                  row, num_rows)
+    return mins
+
+
+def cohen_merge(a_indptr, a_indices, b_mins, *,
+                num_rows_a: int) -> torch.Tensor:
+    """Min-rank sketch of each C row: the elementwise min of the B-row
+    sketches its A row selects. (num_rows_a, k) f32."""
+    row = row_ids_from_indptr(a_indptr[: num_rows_a + 1])
+    sel = a_indices[: row.shape[0]].long().clamp(0, b_mins.shape[0] - 1)
+    out = torch.empty((num_rows_a, b_mins.shape[1]), device=b_mins.device)
+    for r in range(b_mins.shape[1]):
+        out[:, r] = _segment_min(b_mins[:, r][sel], row, num_rows_a)
+    return out
+
+
+def cohen_estimate(mins: torch.Tensor,
+                   clip_max: Optional[int] = None) -> torch.Tensor:
+    """(k - 1) / sum of a sketch's finite min ranks; 0 for an empty one."""
+    k = mins.shape[-1]
+    finite = torch.isfinite(mins)
+    s = torch.where(finite, mins, torch.zeros_like(mins)).sum(-1)
+    e = torch.where(finite.any(-1) & (s > 0),
+                    (k - 1) / torch.clamp(s, min=1e-20),
+                    torch.zeros_like(s))
     if clip_max is not None:
         e = torch.clamp(e, 0.0, float(clip_max))
     return e

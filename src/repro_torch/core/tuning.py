@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .binning import HASH_LOAD_FACTOR, HASH_MIN_TABLE, hash_spill_of
-from .formats import pow2_at_least
+from .formats import pow2_at_least, resolve_device
 
 # Below 0.5 a table wastes shared memory; above ~0.85 linear probing
 # degrades.
@@ -147,7 +147,7 @@ def _kernel_path(device: torch.device) -> str:
     return "cuda-kernel" if device.type == "cuda" else "plain"
 
 
-def tuning_key(rung: int, device="cpu") -> str:
+def tuning_key(rung: int, device="cuda") -> str:
     """Digest of everything the measurement depends on: the rung, the
     torch device type and which kernel path runs there."""
     dev = torch.device(device)
@@ -204,10 +204,12 @@ def _measure(rung: int, device) -> HashTuning:
 
 
 def hash_tuning_for(rung: int, cache: Optional[TuningCache] = None,
-                    device="cpu") -> HashTuning:
-    """Measured load factor for a rung on ``device``, cached and measured
+                    device="cuda") -> HashTuning:
+    """Measured load factor for a rung on ``device`` (the GPU unless the
+    caller asks for the CPU; raises without one), cached and measured
     once however many threads ask at once. Measurement errors propagate,
     to the thread that measured and to every thread that waited on it."""
     cache = DEFAULT_TUNING_CACHE if cache is None else cache
+    device = resolve_device(device)
     return cache.get_or_measure(tuning_key(rung, device),
                                 lambda: _measure(int(rung), device))

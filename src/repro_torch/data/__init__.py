@@ -1,0 +1,4 @@
+"""Deterministic synthetic token data (the port of ``repro.data``)."""
+from .pipeline import DataConfig, SyntheticLM, make_pipeline
+
+__all__ = ["DataConfig", "SyntheticLM", "make_pipeline"]

@@ -12,8 +12,8 @@ over the KV cache.
 ``torch.nn.functional.scaled_dot_product_attention`` is not used: it has
 no softcap and scales at another point, so its bits differ.
 
-MLA (MiniCPM3) and cross-attention (Whisper) wait for the training half
-of the LM substrate (ROADMAP queue 1, item 8).
+MLA (MiniCPM3) and cross-attention (Whisper) wait for their port
+(ROADMAP queue 1, item 8d).
 """
 from __future__ import annotations
 

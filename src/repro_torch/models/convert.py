@@ -1,4 +1,5 @@
-"""Weight carrier: the reference's parameter and cache trees -> the port's.
+"""Weight carrier: the reference's parameter, optimizer-state and cache
+trees -> the port's.
 
 The reference (``repro.models``) stacks the layers of each position of
 the repeating layer period over the period's repeats: scanned layer ``i``
@@ -15,6 +16,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.optim import AdamWState
 from . import transformer as tf
 from .config import ModelConfig
 
@@ -45,16 +47,35 @@ def _flatten(sub, prefix: str, out: Dict[str, np.ndarray]):
     return out
 
 
-def from_reference(cfg: ModelConfig, tree, device="cuda") -> tf.Decoder:
-    """The port's model holding the reference's parameters ``tree``."""
+def reference_named(cfg: ModelConfig, tree) -> Dict[str, np.ndarray]:
+    """A reference params-shaped tree (the params, their gradients, an
+    AdamW moment) by the port's parameter names."""
     flat = _flatten({k: v for k, v in tree.items()
                      if k not in ("blocks", "tail")}, "", {})
     for i, layer in enumerate(reference_layers(cfg, tree)):
         _flatten(layer, f"layers.{i}", flat)
+    return flat
+
+
+def from_reference(cfg: ModelConfig, tree, device="cuda") -> tf.Decoder:
+    """The port's model holding the reference's parameters ``tree``."""
     model = tf.Decoder(cfg, device="meta")
     model.load_state_dict({n: torch.tensor(a, device=device)
-                           for n, a in flat.items()}, assign=True)
+                           for n, a in reference_named(cfg, tree).items()},
+                          assign=True)
     return model
+
+
+def opt_state_from_reference(cfg: ModelConfig, state,
+                             device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves) as the port's: the
+    step an int32 tensor, ``mu`` and ``nu`` by parameter name."""
+    def moments(tree):
+        return {n: torch.tensor(a, dtype=torch.float32, device=device)
+                for n, a in reference_named(cfg, tree).items()}
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=device),
+                      mu=moments(state.mu), nu=moments(state.nu))
 
 
 def caches_from_reference(cfg: ModelConfig, caches, device="cuda"):

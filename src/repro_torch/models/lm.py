@@ -1,17 +1,26 @@
-"""Model-level entry points for serving: init, caches, prefill and decode
-steps, the cross-entropy loss.
+"""Model-level entry points: init, the losses, the train step, caches,
+prefill and decode steps.
 
-The port of the serving half of ``repro.models.lm``. Parameters are a
-:class:`~repro_torch.models.transformer.Decoder`; caches a list with one
-``{'k', 'v'}`` dict a layer. The train-step factories and the chunked
-loss wait for the training half of the LM substrate (ROADMAP queue 1,
-item 8).
+The port of ``repro.models.lm`` for decoder-only models. Parameters are
+a :class:`~repro_torch.models.transformer.Decoder`; caches a list with
+one ``{'k', 'v'}`` dict a layer; gradients and optimizer moments dicts
+keyed by the parameters' names. The serving steps run under
+``no_grad``; the train step takes its gradients with autograd and
+updates the parameters in place. The encoder-decoder's train and decode
+steps wait for its port (ROADMAP queue 1, item 8d).
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.formats import resolve_device
+from repro_torch.optim import (AdamWConfig, adamw_update, compress_grads,
+                               cosine_schedule)
 from . import transformer as tf
 from .config import ModelConfig
 
@@ -62,6 +71,117 @@ def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
         return torch.mean(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def chunked_cross_entropy(params, hidden, labels, cfg: ModelConfig, *,
+                          chunk: int = 512, z_loss: float = 1e-4):
+    """CE over sequence chunks so (B, L, vocab) logits never materialize.
+
+    Each chunk's unembed and loss run in a checkpoint region, so only one
+    chunk's (B, chunk, V) f32 logits (and the f32 copy of a tied
+    embedding that ``unembed`` makes) are live at a time, in the forward
+    and again in the backward pass. L is padded to a multiple of the
+    chunk, the padded labels masked; the chunks' sums add up in order and
+    the total is divided by B * L, as the reference's scan.
+    """
+    b, l, d = hidden.shape
+    if l <= chunk:
+        logits = tf.unembed(params, hidden, cfg)
+        return cross_entropy(logits.float(), labels, z_loss=z_loss)
+    n = -(-l // chunk)
+    pad = n * chunk - l
+    hidden = F.pad(hidden, (0, 0, 0, pad))
+    labels = F.pad(labels, (0, pad))
+    valid = F.pad(torch.ones((b, l), device=hidden.device), (0, pad))
+
+    def chunk_loss(h, lab, v):
+        logits = tf.unembed(params, h, cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = (logz - gold + z_loss * torch.square(logz)) * v
+        return torch.sum(nll)
+
+    total = torch.zeros((), device=hidden.device)
+    for i in range(n):
+        part = slice(i * chunk, (i + 1) * chunk)
+        total = total + ckpt.checkpoint(
+            chunk_loss, hidden[:, part], labels[:, part], valid[:, part],
+            use_reentrant=False)
+    return total / (b * l)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def loss_fn(params, tokens, cfg: ModelConfig, *, remat: str = "dots",
+            aux_weight: float = 0.01):
+    """(loss + aux_weight * aux, loss, aux) of ``tokens`` (B, L+1): inputs
+    and labels shifted here."""
+    tokens = tokens.long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    hidden, _, aux = tf.apply_decoder(params, inputs, cfg, mode="train",
+                                      remat=remat, return_hidden=True)
+    loss = chunked_cross_entropy(params, hidden, labels, cfg)
+    return loss + aux_weight * aux, loss, aux
+
+
+def grads_of(params, tokens, cfg: ModelConfig, *, remat: str = "dots",
+             aux_weight: float = 0.01):
+    """(grads by parameter name, loss, aux) of ``loss_fn``; the grad of a
+    parameter the loss does not reach is zeros, as JAX's."""
+    named = dict(params.named_parameters())
+    with torch.enable_grad():
+        total, loss, aux = loss_fn(params, tokens, cfg, remat=remat,
+                                   aux_weight=aux_weight)
+        gs = torch.autograd.grad(total, list(named.values()),
+                                 allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for (n, p), g in zip(named.items(), gs)}
+    return grads, loss.detach(), aux.detach()
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    remat: str = "dots", microbatch: int = 0,
+                    schedule_kwargs: Optional[dict] = None,
+                    aux_weight: float = 0.01):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics); batch: {'tokens' (B, L+1) int}. The parameters and the
+    moments are updated in place. ``microbatch`` > 0 accumulates the
+    gradients of B // microbatch slices in order (the remainder rows are
+    dropped), keeping activation memory at the microbatch size; grads,
+    loss and aux are then divided by the slice count.
+    """
+    schedule_kwargs = schedule_kwargs or {"warmup": 100, "total": 10_000}
+    grads_fn = functools.partial(grads_of, cfg=cfg, remat=remat,
+                                 aux_weight=aux_weight)
+
+    def train_step(params, opt_state, batch):
+        tokens = batch["tokens"]
+        if microbatch and microbatch < tokens.shape[0]:
+            n = tokens.shape[0] // microbatch
+            grads, loss, aux = grads_fn(params, tokens[:microbatch])
+            for i in range(1, n):
+                g, l_, a = grads_fn(
+                    params, tokens[i * microbatch:(i + 1) * microbatch])
+                for name, acc in grads.items():
+                    acc.add_(g[name])
+                loss, aux = loss + l_, aux + a
+                del g
+            for acc in grads.values():
+                acc.div_(n)
+            loss, aux = loss / n, aux / n
+        else:
+            grads, loss, aux = grads_fn(params, tokens)
+        grads = compress_grads(grads, opt_cfg.grad_compression)
+        lr_scale = cosine_schedule(opt_state.step, **schedule_kwargs)
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state,
+                                                opt_cfg, lr_scale)
+        metrics = {"loss": loss, "aux_loss": aux, "grad_norm": gnorm,
+                   "lr_scale": lr_scale}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

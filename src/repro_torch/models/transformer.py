@@ -5,11 +5,12 @@ reference stacks each position of the repeating layer *period* over its
 repeats and runs the stack under one ``lax.scan``; here the layers are an
 ``nn.ModuleList`` in layer order, and ``StackPlan`` only says which
 reference block a layer's parameters come from (``models/convert.py``).
-Caches are a list with one ``{'k', 'v'}`` dict a layer.
+Caches are a list with one ``{'k', 'v'}`` dict a layer. Rematerialisation
+(``remat``) wraps each layer in its own checkpoint region.
 
 Mamba layers (Falcon-Mamba, Jamba), MLA (MiniCPM3) and the
-encoder-decoder (Whisper) wait for the training half of the LM substrate
-(ROADMAP queue 1, item 8) and raise ``NotImplementedError``.
+encoder-decoder (Whisper) wait for their port (ROADMAP queue 1, item 8d)
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -26,11 +28,11 @@ from .layers import make_param, ones_param, rms_norm, scalar_in
 
 UNPORTED = {
     "mamba": "Mamba layers (falcon-mamba, jamba) wait for the port of "
-             "models/mamba.py (ROADMAP queue 1, item 8, training half)",
+             "models/mamba.py (ROADMAP queue 1, item 8d)",
     "mla": "MLA attention (minicpm3) waits for its port (ROADMAP queue 1, "
-           "item 8, training half)",
+           "item 8d)",
     "encdec": "the encoder-decoder (whisper) waits for its port (ROADMAP "
-              "queue 1, item 8, training half)",
+              "queue 1, item 8d)",
 }
 
 
@@ -174,12 +176,41 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int,
             for kind in layer_kinds(cfg)]
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``:
+    keep the outputs of products without batch dims (the projections,
+    ``mm`` / ``addmm``), recompute the rest (``bmm``: the attention and
+    expert einsums; norms, RoPE, casts)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str, *args):
+    """``fn(*args)`` in a checkpoint region: ``'full'`` keeps only its
+    inputs, ``'dots'`` also the outputs of :func:`_save_dots`."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _save_dots))
+    raise ValueError(f"unknown remat mode {remat!r}")
+
+
 def apply_decoder(params: Decoder, inputs, cfg: ModelConfig, *,
                   mode: str = "train", caches=None, cache_len=None,
-                  positions=None, return_hidden: bool = False):
+                  positions=None, return_hidden: bool = False,
+                  remat: str = "none"):
     """inputs: (B, L) int tokens, or (B, L, D) float embeddings (stub
     frontends). Returns (logits, new_caches, aux_loss_sum); with
-    ``return_hidden`` the first element is the final hidden state."""
+    ``return_hidden`` the first element is the final hidden state.
+    ``remat`` ('none' | 'full' | 'dots', the reference's modes; train mode
+    only) recomputes each layer in the backward pass; values do not
+    change."""
     cd = cfg.compute_dtype
     if not inputs.is_floating_point():
         # gather, then cast: the same values as casting the whole table
@@ -198,15 +229,22 @@ def apply_decoder(params: Decoder, inputs, cfg: ModelConfig, *,
         if cfg.mrope_sections:
             positions = positions[None].expand((3,) + positions.shape)
 
+    if remat != "none" and mode != "train":
+        raise ValueError("remat applies to the train mode only")
+
+    def run(layer, x, cache):
+        x, nc, aux = apply_layer(layer, x, cfg, layer.kind,
+                                 positions=positions, cache=cache,
+                                 cache_len=cache_len, mode=mode)
+        return x, nc, (aux["aux_loss"] if aux is not None else None)
+
     aux_total = torch.zeros((), device=dev)
     new_caches = [] if caches is not None else None
     for i, layer in enumerate(params.layers):
-        x, nc, aux = apply_layer(
-            layer, x, cfg, layer.kind, positions=positions,
-            cache=caches[i] if caches is not None else None,
-            cache_len=cache_len, mode=mode)
+        x, nc, aux = _remat(run, remat, layer, x,
+                            caches[i] if caches is not None else None)
         if aux is not None:
-            aux_total = aux_total + aux["aux_loss"]
+            aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(nc)
 

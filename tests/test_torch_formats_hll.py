@@ -141,3 +141,74 @@ def test_merge_register_partials_match():
         [(r0, r1, torch.from_numpy(x)) for r0, r1, x in parts],
         num_rows=7, m_regs=32)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Cohen's min-rank estimator: minima to rtol 1e-6 (f32 ``log`` may differ
+# by an ulp), estimates to rtol 1e-5
+# ---------------------------------------------------------------------------
+
+def cohen_inputs():
+    """B with empty rows and capacity padding, A selecting them too."""
+    rb = rformats.random_uniform_csr(3, 200, 1000, 15.0)
+    ra = rformats.random_uniform_csr(4, 100, 200, 10.0)
+    indptr, indices, values = (np.asarray(x) for x in rb.to_scipy_like())
+    lens = np.diff(indptr)
+    lens[[0, 17, 199]] = 0                       # empty B rows
+    keep = np.concatenate([np.arange(s, s + n) for s, n in
+                           zip(indptr[:-1], lens)]).astype(np.int64)
+    rb = rformats.csr_from_arrays(
+        np.concatenate([[0], np.cumsum(lens)]).astype(np.int32),
+        indices[keep], values[keep], rb.shape, capacity=len(keep) + 37)
+    return rb, ra
+
+
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_cohen_matches_reference(k, seed):
+    rb, ra = cohen_inputs()
+    b = formats.csr_from_arrays(*(np.asarray(x) for x in rb.to_scipy_like()),
+                                rb.shape, capacity=rb.indices.shape[0],
+                                device="cpu")
+    a = formats.from_numpy_csr(*ra.to_scipy_like(), ra.shape, device="cpu")
+    want = np.asarray(rhll.cohen_build(rb.indptr, rb.indices, k=k,
+                                       num_rows=rb.m, n_cols=rb.n,
+                                       seed=seed))
+    got = hll.cohen_build(b.indptr, b.indices, k=k, num_rows=b.m,
+                          n_cols=b.n, seed=seed)
+    assert got.shape == (rb.m, k) and got.dtype == torch.float32
+    assert np.isinf(want[[0, 17, 199]]).all()
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    wmerged = np.asarray(rhll.cohen_merge(ra.indptr, ra.indices,
+                                          jnp.asarray(want),
+                                          num_rows_a=ra.m))
+    merged = hll.cohen_merge(a.indptr, a.indices, got, num_rows_a=a.m)
+    np.testing.assert_allclose(merged.numpy(), wmerged, rtol=1e-6)
+    for clip in (None, 40):
+        np.testing.assert_allclose(
+            hll.cohen_estimate(merged, clip_max=clip).numpy(),
+            np.asarray(rhll.cohen_estimate(jnp.asarray(wmerged),
+                                           clip_max=clip)), rtol=1e-5)
+    empty = torch.full((2, k), float("inf"))
+    assert hll.cohen_estimate(empty).tolist() == [0.0, 0.0]
+
+
+def test_cohen_estimator_sane():
+    """The reference's sanity test (tests/test_hll.py), on the port."""
+    rb = rformats.random_uniform_csr(3, 200, 1000, 15.0)
+    ra = rformats.random_uniform_csr(4, 100, 200, 10.0)
+    b = formats.from_numpy_csr(*rb.to_scipy_like(), rb.shape, device="cpu")
+    a = formats.from_numpy_csr(*ra.to_scipy_like(), ra.shape, device="cpu")
+    mins = hll.cohen_build(b.indptr, b.indices, k=16, num_rows=b.m,
+                           n_cols=b.n)
+    merged = hll.cohen_merge(a.indptr, a.indices, mins, num_rows_a=a.m)
+    est = hll.cohen_estimate(merged, clip_max=b.n).numpy()
+    ai, aj, _ = (np.asarray(x) for x in ra.to_scipy_like())
+    bi, bj, _ = (np.asarray(x) for x in rb.to_scipy_like())
+    true = np.array([len(set(np.concatenate(
+        [bj[bi[k]:bi[k + 1]] for k in aj[ai[r]:ai[r + 1]]] or [[]])))
+        for r in range(ra.m)])
+    mask = true > 0
+    rel = np.abs(est[mask] - true[mask]) / true[mask]
+    assert rel.mean() < 0.5

@@ -620,7 +620,7 @@ def _ask_at_once(n, cache):
     def ask(i):
         start.wait()
         try:
-            got[i] = tuning.hash_tuning_for(512, cache=cache)
+            got[i] = tuning.hash_tuning_for(512, cache=cache, device="cpu")
         except RuntimeError as exc:
             got[i] = exc
 
@@ -647,7 +647,7 @@ def test_tuner_measures_once_for_concurrent_askers(monkeypatch):
     assert calls == [512]
     assert all(g is got[0] for g in got)
     assert got[0].load_factor == 0.5
-    assert tuning.hash_tuning_for(512, cache=cache) is got[0]
+    assert tuning.hash_tuning_for(512, cache=cache, device="cpu") is got[0]
     assert calls == [512]
 
 
@@ -668,5 +668,5 @@ def test_tuner_error_reaches_every_waiter(monkeypatch):
     assert len(cache) == 0
     # never turned into the default tuning: the next ask measures again
     with pytest.raises(RuntimeError, match="kernel launch failed"):
-        tuning.hash_tuning_for(512, cache=cache)
+        tuning.hash_tuning_for(512, cache=cache, device="cpu")
     assert calls == [512, 512]

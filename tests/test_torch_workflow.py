@@ -235,12 +235,12 @@ def test_tuning_errors_propagate(monkeypatch):
 
     monkeypatch.setattr(tuning, "_measure", boom)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
-        tuning.hash_tuning_for(64, cache=tuning.TuningCache())
+        tuning.hash_tuning_for(64, cache=tuning.TuningCache(), device="cpu")
     assert tuning.tuning_key(64, "cpu") != tuning.tuning_key(128, "cpu")
 
 
 def test_tuning_measures_through_hash_bin_op():
-    t = tuning.hash_tuning_for(64, cache=tuning.TuningCache())
+    t = tuning.hash_tuning_for(64, cache=tuning.TuningCache(), device="cpu")
     assert t.load_factor in tuning.LOAD_FACTOR_CANDIDATES
 
 
