@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # 2**20-row matrices (default)
-    # a quick run (phases 2f and 2g at the LM smoke configs):
+    # a quick run (phases 2f, 2g and 2h at the LM smoke configs):
     python3 chip_smoke.py --log2-rows 14 --graph-scale 12 \
         --serve-log2-rows 14 --lm-smoke
 
@@ -101,6 +101,23 @@ Phases, each of which raises on failure:
    steps; the bf16 readings of phase 2f and a Qwen3 bf16 train step's
    loss and grad norm with the bf16 reduced-precision-reduction flag on
    and off; the phase frees all it allocated;
+2h. the three model families beyond GQA at full width (``--lm-smoke``:
+   their smoke configs): serving Falcon-Mamba-7B and MiniCPM3-4B at full
+   depth and Jamba-v0.1 at its first 5 of 32 layers (6 requests of
+   64-512 tokens and one of 1,536, 16 new each, on the 4-slot engine;
+   batched = alone; a 1,024-token prefill + 8 decode steps against one
+   full forward within 1e-3 in f32 and within 2x the model's own
+   bf16-against-f32 gap in bf16, Jamba's router choices replayed), with
+   prefill and decode ms, tokens/s, the decode bound, profiles and peak
+   memory; Whisper-base on 2 x 1,500 frames (a 64-token prefill through
+   ``apply_encdec(mode="prefill")`` and 32 decode steps, each within
+   1e-3 of the full forward in f32; encoder, prefill and decode ms in
+   bf16); training Falcon-Mamba at 8 of 64 layers and MiniCPM3 at 16 of
+   62 (``make_train_step`` + ``train_loop``) and Whisper-base whole
+   (``make_encdec_train_step``, 2 x (1,500 frames, 448 tokens)), 8 steps
+   each, losses finite and falling, step ms, bound, idle share and peak;
+   each family's smoke config on the card against the CPU (logits and a
+   train step, 1e-4); the phase frees all it allocated;
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2, 2c and 2d paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
@@ -138,8 +155,8 @@ Phases, each of which raises on failure:
 
 Before the last line come ``{"serving": {...}}`` (phase 2d's numbers),
 ``{"sharded": {...}}`` (phase 2e's), ``{"lm": {...}}`` (phase 2f's),
-``{"train": {...}}`` (phase 2g's and the Cohen check's) and
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+``{"train": {...}}`` (phase 2g's and the Cohen check's),
+``{"families": {...}}`` (phase 2h's) and ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits
 with a non-zero code and prints no result.
 """
@@ -1369,17 +1386,17 @@ def batched_vs_alone(cfg, wparams, specs, label: str):
     return reqs_b, worst
 
 
-def lm_serve(cfg, params, label: str) -> dict:
-    """8 requests batched, then each alone: the same tokens and logits."""
+def lm_serve(cfg, params, label: str, specs) -> dict:
+    """The requests ``specs`` batched, then each alone: the same tokens
+    and logits."""
     import torch
     from repro_torch.models import lm
     wparams = lm.cast_weights(params, cfg.compute_dtype)   # made once
-    specs = lm_requests(cfg.vocab_size, seed=11)
     reqs, _, pre_ms, dec_ms, wall, wbytes = serve_logged(
         cfg, wparams, specs, keep_logits=False)
     tokens = sum(len(r.output) for r in reqs)
     lens = [len(p) for p, _ in specs]
-    log(f"{label} serve: 8 requests, prompts {lens}, new "
+    log(f"{label} serve: {len(specs)} requests, prompts {lens}, new "
         f"{[m for _, m in specs]}; wall {wall:.3f} s, {tokens} tokens, "
         f"{tokens / wall:.1f} tokens/s; prefill ms "
         f"{[round(t, 2) for t in pre_ms]}; decode {len(dec_ms)} steps, median {np.median(dec_ms):.2f} ms (min {min(dec_ms):.2f}, "
@@ -1388,7 +1405,8 @@ def lm_serve(cfg, params, label: str) -> dict:
     reqs_b, worst = batched_vs_alone(cfg, wparams, specs, label)
     if [r.output for r in reqs_b] != [r.output for r in reqs]:
         raise AssertionError(f"{label}: two batched runs differ in tokens")
-    log(f"{label}: batched = alone for all 8 requests (tokens equal, logits "
+    log(f"{label}: batched = alone for all {len(specs)} requests (tokens "
+        f"equal, logits "
         f"max abs diff {worst:.3g}); first tokens "
         f"{[r.output[0] for r in reqs]} (the reference's engine.py:81)")
     scatter = None
@@ -1546,25 +1564,42 @@ def lm_teacher_forced(cfg, params, dev, dtype: str) -> dict:
 
 def lm_card_vs_cpu(arch: str, dev) -> dict:
     """The smoke config with the same seeded params on the CPU and the
-    card: prefill (1100 tokens, the chunked path) and 8 decode steps."""
+    card: prefill (1100 tokens, the chunked path) and 8 decode steps. An
+    encoder-decoder prefills 16 tokens over 1,100 seeded frames (the
+    chunked core) through ``apply_encdec(mode="prefill")``."""
     import torch
     from repro_torch import configs
     from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
     cfg = configs.get_config(arch, smoke=True)
-    models = {"cpu": lm.init_model(cfg, seed=0, device="cpu"),
-              "card": lm.init_model(cfg, seed=0, device="cpu").to(dev)}
-    rng = np.random.default_rng(13)
-    toks = rng.integers(0, cfg.vocab_size, (2, 1108))
+    encdec = cfg.is_encoder_decoder
+    rng = np.random.default_rng(21 if encdec else 13)
+    if encdec:
+        audio = rng.standard_normal((2, 1100, cfg.d_model)).astype(
+            np.float32)
+    p = 16 if encdec else 1100
+    toks = rng.integers(0, cfg.vocab_size, (2, p + 8))
+    decode = (lm.make_encdec_decode_step if encdec
+              else lm.make_decode_step)(cfg)
     out = {}
-    for where, model in models.items():
-        d = model.embed.device
+    for where in ("cpu", "card"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = lm.init_model(cfg, seed=0, device="cpu").to(d)
         t = torch.as_tensor(toks, device=d)
-        caches = lm.init_caches(cfg, 2, 1108, dtype=torch.float32, device=d)
-        lo, caches = lm.make_prefill_step(cfg)(model, caches, t[:, :1100])
+        caches = lm.init_caches(cfg, 2, p + 8, dtype=torch.float32, device=d,
+                                src_len=1100 if encdec else 0)
+        if encdec:
+            with torch.no_grad():
+                lo, caches, _ = tf.apply_encdec(
+                    model, torch.as_tensor(audio, device=d), t[:, :p], cfg,
+                    mode="prefill", caches=caches)
+            lo = lo[:, -1]
+        else:
+            lo, caches = lm.make_prefill_step(cfg)(model, caches, t[:, :p])
         steps = [lo.cpu()]
-        for j in range(1100, 1108):
-            lo, caches = lm.make_decode_step(cfg)(
-                model, caches, t[:, j:j + 1], torch.full((2,), j, device=d))
+        for j in range(p, p + 8):
+            lo, caches = decode(model, caches, t[:, j:j + 1],
+                                torch.full((2,), j, device=d))
             steps.append(lo.cpu())
         out[where] = torch.stack(steps, 1)
     scale = float(out["cpu"].abs().max())
@@ -1681,6 +1716,73 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
     return line, (dt, d, plan)
 
 
+def serve_and_check(cfg, params, dev, arch: str, pbytes: int, specs) -> dict:
+    """A model's serving checks: ``specs`` served batched and alone
+    (``lm_serve``), then prefill + decode against one full forward in bf16
+    and in f32 (``lm_teacher_forced``), each held to its limit. Each
+    step's peak memory is read alone (``peaks_gib``; this resets the peak
+    counter, so a caller reads its peak with ``overall_peak``)."""
+    import torch
+    m = {"params": cfg.param_count(), "param_gb": pbytes / 1e9,
+         "f32_decode_bound_ms": pbytes / HBM_BYTES_PER_S * 1e3,
+         "peaks_gib": {"before": torch.cuda.max_memory_allocated() / 2**30}}
+
+    def peak_of(name, fn):
+        """fn(); its start's allocated memory and its peak, in GiB."""
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 2**30
+        res = fn()
+        m["peaks_gib"][name] = [start,
+                                torch.cuda.max_memory_allocated() / 2**30]
+        return res
+
+    m["serve"] = peak_of("serve", lambda: lm_serve(cfg, params, arch, specs))
+    m["teacher_forced"] = {}
+    for dtype in ("bfloat16", "float32"):
+        tf_ = peak_of(f"teacher_forced_{dtype}", lambda: lm_teacher_forced(
+            cfg, params, dev, dtype))
+        m["teacher_forced"][dtype] = tf_
+        log(f"{arch} teacher-forced {dtype}: {LM_TF_STEPS} decode steps "
+            f"and the prefill's last against one full forward of "
+            f"{LM_TF_PREFILL + LM_TF_STEPS} tokens: max abs diff "
+            f"{tf_['max_abs']:.3g} (max |logit| {tf_['max_logit']:.3g})")
+        if "replayed_rel" in tf_:
+            log(f"  router top-{cfg.moe_top_k} sets flipped against the "
+                f"full forward, by layer: {tf_['flips_by_layer']} of "
+                f"{2 * LM_TF_PREFILL + 2 * LM_TF_STEPS} tokens, "
+                f"{tf_['flips_by_layer_compared']} of the "
+                f"{tf_['tokens_compared']} compared; compared tokens "
+                f"flipped in some layer {tf_['tokens_flipped']}, gap "
+                f"relative to max |logit| on them {tf_['flip_rel']}, on "
+                f"the others {tf_['no_flip_rel']}; with the full "
+                f"forward's choices replayed {tf_['replayed_rel']:.3g}")
+        if "bf16_vs_f32_rel" in tf_:
+            log(f"  the full forward in bf16 against f32 (f32's expert "
+                f"choices): {tf_['bf16_vs_f32_rel']:.3g} of max |logit|")
+    log(f"{arch}: allocated at the start and peak of each step, GiB: "
+        f"{json.dumps(m['peaks_gib'])}")
+    tf32, tf16 = (m["teacher_forced"][k] for k in ("float32", "bfloat16"))
+    if tf32["rel"] > LM_TF_RTOL:
+        raise AssertionError(f"{arch}: f32 decode differs from the full "
+                             f"forward: {tf32}")
+    if (tf16.get("replayed_rel", tf16["rel"])
+            > LM_TF_BF16_FACTOR * tf16["bf16_vs_f32_rel"]):
+        raise AssertionError(f"{arch}: bf16 decode differs from the full "
+                             "forward (expert choices replayed) by more "
+                             f"than {LM_TF_BF16_FACTOR} x bf16's own "
+                             f"reach: {tf16}")
+    return m
+
+
+def overall_peak(m) -> float:
+    """The peak device memory (GiB) since the caller's reset, across the
+    steps of ``serve_and_check`` that returned ``m``."""
+    import torch
+    return max([torch.cuda.max_memory_allocated() / 2**30,
+                m["peaks_gib"]["before"]]
+               + [v[1] for k, v in m["peaks_gib"].items() if k != "before"])
+
+
 def lm_phase(args, dev, kd, kh, kl, path_counts) -> dict:
     """Phase 2f: the LM serving path at the full width of Qwen3-1.7B and
     OLMoE-1B-7B (smoke configs with ``--lm-smoke``). Returns the fields of
@@ -1707,40 +1809,8 @@ def lm_phase(args, dev, kd, kh, kl, path_counts) -> dict:
             f"{cfg.param_count():,} params by the config's count, "
             f"{pbytes / 1e9:.2f} GB in f32, drawn in "
             f"{time.perf_counter() - t0:.2f} s")
-        m = {"params": cfg.param_count(), "param_gb": pbytes / 1e9,
-             "f32_decode_bound_ms": pbytes / HBM_BYTES_PER_S * 1e3}
-        m["serve"] = lm_serve(cfg, params, arch)
-        m["teacher_forced"] = {}
-        for dtype in ("bfloat16", "float32"):
-            tf_ = lm_teacher_forced(cfg, params, dev, dtype)
-            m["teacher_forced"][dtype] = tf_
-            log(f"{arch} teacher-forced {dtype}: {LM_TF_STEPS} decode steps "
-                f"and the prefill's last against one full forward of "
-                f"{LM_TF_PREFILL + LM_TF_STEPS} tokens: max abs diff "
-                f"{tf_['max_abs']:.3g} (max |logit| {tf_['max_logit']:.3g})")
-            if "replayed_rel" in tf_:
-                log(f"  router top-{cfg.moe_top_k} sets flipped against the "
-                    f"full forward, by layer: {tf_['flips_by_layer']} of "
-                    f"{2 * LM_TF_PREFILL + 2 * LM_TF_STEPS} tokens, "
-                    f"{tf_['flips_by_layer_compared']} of the "
-                    f"{tf_['tokens_compared']} compared; compared tokens "
-                    f"flipped in some layer {tf_['tokens_flipped']}, gap "
-                    f"relative to max |logit| on them {tf_['flip_rel']}, on "
-                    f"the others {tf_['no_flip_rel']}; with the full "
-                    f"forward's choices replayed {tf_['replayed_rel']:.3g}")
-            if "bf16_vs_f32_rel" in tf_:
-                log(f"  the full forward in bf16 against f32 (f32's expert "
-                    f"choices): {tf_['bf16_vs_f32_rel']:.3g} of max |logit|")
-        tf32, tf16 = (m["teacher_forced"][k] for k in ("float32", "bfloat16"))
-        if tf32["rel"] > LM_TF_RTOL:
-            raise AssertionError(f"{arch}: f32 decode differs from the full "
-                                 f"forward: {tf32}")
-        if (tf16.get("replayed_rel", tf16["rel"])
-                > LM_TF_BF16_FACTOR * tf16["bf16_vs_f32_rel"]):
-            raise AssertionError(f"{arch}: bf16 decode differs from the full "
-                                 "forward (expert choices replayed) by more "
-                                 f"than {LM_TF_BF16_FACTOR} x bf16's own "
-                                 f"reach: {tf16}")
+        m = serve_and_check(cfg, params, dev, arch, pbytes,
+                            lm_requests(cfg.vocab_size, seed=11))
         m["attention"] = lm_attention_yardstick(cfg, dev)
         log(f"{arch} attention at {m['attention']['shape']}: attention_core "
             f"{m['attention']['core_ms']:.3f} ms, one "
@@ -1752,7 +1822,7 @@ def lm_phase(args, dev, kd, kh, kl, path_counts) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        m["peak_gib"] = overall_peak(m)
         log(f"{arch}: peak device memory {m['peak_gib']:.2f} GiB (with "
             f"{resident:.2f} GiB of earlier phases resident); decode bound "
             f"{m['serve']['decode_bound_ms']:.3f} ms a step at the engine's "
@@ -1799,21 +1869,55 @@ def bf16_reduction_flag(value=None) -> bool:
 def train_flops(cfg, batch: int, seq: int) -> float:
     """Matmul operations of one train step: the forward's products (MoE
     layers at each token's top-k experts, causal attention at the (query,
-    key) pairs on or below the diagonal) and the backward's at twice the
+    key) pairs on or below the diagonal, an MLA layer's low-rank
+    projections, a Mamba layer's projections; the Mamba scan's
+    elementwise operations not counted) and the backward's at twice the
     forward's."""
     d, dh, hq, hkv = cfg.d_model, cfg.head_dim_, cfg.num_heads, \
         cfg.num_kv_heads
     t = batch * seq
+    pairs = batch * seq * (seq + 1) / 2
     fwd = 2 * t * d * cfg.vocab_size                       # unembed
     for i in range(cfg.num_layers):
-        fwd += 2 * t * (2 * d * hq * dh + 2 * d * hkv * dh)
-        fwd += 2 * 2 * batch * hq * dh * seq * (seq + 1) / 2
+        if not cfg.is_attn_layer(i):
+            di, ds, dtr = (cfg.mamba_d_inner, cfg.mamba_d_state,
+                           cfg.mamba_dt_rank_)
+            fwd += 2 * t * (d * 2 * di + di * (dtr + 2 * ds) + dtr * di
+                            + di * d)
+        elif cfg.attention_type == "mla":
+            r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim,
+                             cfg.qk_rope_dim, cfg.v_head_dim)
+            fwd += 2 * t * (d * cfg.q_lora_rank
+                            + cfg.q_lora_rank * hq * (dn + dr)
+                            + d * (r + dr) + r * hq * (dn + dv)
+                            + hq * dv * d)
+            fwd += 2 * hq * (dn + dr + dv) * pairs
+        else:
+            fwd += 2 * t * (2 * d * hq * dh + 2 * d * hkv * dh)
+            fwd += 2 * 2 * hq * dh * pairs
         if cfg.is_moe_layer(i):
             ff = cfg.moe_d_ff or cfg.d_ff
             fwd += 2 * t * (d * cfg.moe_num_experts
                             + cfg.moe_top_k * 3 * d * ff)
         elif cfg.d_ff:
             fwd += 2 * t * 3 * d * cfg.d_ff
+    return 3 * fwd
+
+
+def encdec_train_flops(cfg, batch: int, src: int, tgt: int) -> float:
+    """``train_flops`` of the encoder-decoder: encoder layers over ``src``
+    frames (attention not causal), decoder layers over ``tgt`` tokens
+    (causal self-attention, cross-attention to the frames, the cross K/V
+    projected from them), the unembed."""
+    d, dh, h, hkv = cfg.d_model, cfg.head_dim_, cfg.num_heads, \
+        cfg.num_kv_heads
+    qo, kv, mlp = 2 * d * h * dh, 2 * d * hkv * dh, 3 * d * cfg.d_ff
+    enc = 2 * batch * src * (qo + kv + mlp) + 4 * h * dh * batch * src * src
+    dec = (2 * batch * tgt * (2 * qo + kv + mlp) + 2 * batch * src * kv
+           + 4 * h * dh * batch * tgt * (tgt + 1) / 2
+           + 4 * h * dh * batch * tgt * src)
+    fwd = (cfg.encoder_layers * enc + cfg.decoder_layers * dec
+           + 2 * batch * tgt * d * cfg.vocab_size)
     return 3 * fwd
 
 
@@ -1831,27 +1935,54 @@ def host_ms(fn, runs: int) -> list:
     return out
 
 
-def train_readings(label, cfg, res, dev, lr: float) -> dict:
-    """The numbers of a full-width run: every loss finite and the last
-    below the first; median step ms after the first, tokens/s, forward +
-    backward against optimizer ms, bounds, torch.profiler's device idle
-    share of one more step. Further steps train the run's own state."""
-    import torch
-    from repro_torch.launch import train
-    from repro_torch.models import lm
-    from repro_torch.optim import AdamWConfig, adamw_update
-    hist = res["metrics_history"]
+def step_readings(label, hist, times, n: int, flops: float, tokens: int,
+                  step) -> dict:
+    """The numbers every full-width training run reports: every loss of
+    ``hist`` finite and the last below the first; the median of the step
+    ms ``times`` after the first, tokens/s at ``tokens`` a step, the bound
+    of ``n`` parameters at 28 B and ``flops`` at bf16's peak (the
+    larger), and torch.profiler's device idle share of one more call of
+    ``step``."""
     losses = [h["loss"] for h in hist]
     if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: loss did not fall: {losses}")
-    params, state = res["params"], res["opt_state"]
-    times = [t * 1e3 for t in res["step_times_s"]]
     step_ms = float(np.median(times[1:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    prof = profile_fn(f"{label} train step", step)
+    b_ms, b_by = bound(28 * n, flops, BF16_PEAK_OPS_PER_S)
+    out = {"losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "step_ms": times, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "params": n,
+           "step_flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+           "profile": prof}
+    log(f"{label} train: losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(t, 1) for t in times]}, median after the first "
+        f"{step_ms:.1f} ({out['tokens_per_s']:.0f} tokens/s); bound "
+        f"{b_ms:.2f} ms by {b_by} ({flops:.3g} operations at bf16's peak, "
+        f"{n:,} parameters)")
+    return out
+
+
+def train_readings(label, cfg, res, dev, lr: float) -> dict:
+    """A decoder's full-width run: ``step_readings`` of the loop's history
+    and step times, then its aux losses, and forward + backward against
+    optimizer ms. Further steps train the run's own state."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_update
+    params, state = res["params"], res["opt_state"]
     toks = torch.as_tensor(train_tokens(cfg, TRAIN_STEPS), device=dev)
     opt_cfg = AdamWConfig(lr=lr)
+    step = lm.make_train_step(cfg, opt_cfg,
+                              schedule_kwargs=train.schedule_for(TRAIN_STEPS))
+    n = sum(p.numel() for p in params.parameters())
+    out = step_readings(label, res["metrics_history"],
+                        [t * 1e3 for t in res["step_times_s"]], n,
+                        train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                        TRAIN_BATCH * TRAIN_SEQ,
+                        lambda: step(params, state, {"tokens": toks}))
     box = {}
 
     def fwd_bwd():
@@ -1861,30 +1992,14 @@ def train_readings(label, cfg, res, dev, lr: float) -> dict:
     opt_ms = host_ms(lambda: adamw_update(params, box["g"], state, opt_cfg,
                                           0.5), 2)
     box.clear()
-    step = lm.make_train_step(cfg, opt_cfg,
-                              schedule_kwargs=train.schedule_for(TRAIN_STEPS))
-    prof = profile_fn(f"{label} train step",
-                      lambda: step(params, state, {"tokens": toks}))
-    n = sum(p.numel() for p in params.parameters())
-    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     opt_bound = 28 * n / HBM_BYTES_PER_S * 1e3
-    b_ms, b_by = bound(28 * n, flops, BF16_PEAK_OPS_PER_S)
-    out = {"losses": losses, "aux_losses": [h["aux_loss"] for h in hist],
-           "grad_norms": [h["grad_norm"] for h in hist],
-           "step_ms": times, "step_ms_median": step_ms,
-           "tokens_per_s": tokens / step_ms * 1e3,
-           "fwd_bwd_ms": fb_ms, "optimizer_ms": opt_ms,
-           "params": n, "step_flops": flops, "bound_ms": b_ms,
-           "bound_by": b_by, "optimizer_bound_ms": opt_bound,
-           "profile": prof}
-    log(f"{label} train: losses {[round(x, 4) for x in losses]}; aux "
-        f"{[round(x, 4) for x in out['aux_losses']]}; step ms "
-        f"{[round(t, 1) for t in times]}, median after the first "
-        f"{step_ms:.1f} ({out['tokens_per_s']:.0f} tokens/s); forward + "
-        f"backward {[round(t, 1) for t in fb_ms]} ms, optimizer "
-        f"{[round(t, 1) for t in opt_ms]} ms; bound {b_ms:.2f} ms by "
-        f"{b_by} ({flops:.3g} operations at bf16's peak, optimizer "
-        f"{opt_bound:.2f} ms at 28 B a parameter, {n:,} parameters)")
+    out.update(aux_losses=[h["aux_loss"] for h in res["metrics_history"]],
+               fwd_bwd_ms=fb_ms, optimizer_ms=opt_ms,
+               optimizer_bound_ms=opt_bound)
+    log(f"{label} train: aux {[round(x, 4) for x in out['aux_losses']]}; "
+        f"forward + backward {[round(t, 1) for t in fb_ms]} ms, optimizer "
+        f"{[round(t, 1) for t in opt_ms]} ms (bound {opt_bound:.2f} ms at "
+        f"28 B a parameter)")
     return out
 
 
@@ -1935,18 +2050,17 @@ def train_qwen3(args, dev) -> dict:
     return out
 
 
-def train_olmoe(args, dev) -> dict:
-    """OLMoE-1B-7B at full width, cut to TRAIN_OLMOE_LAYERS of its 16
-    layers, through make_train_step and train_loop."""
+def train_cut(args, dev, arch: str, layers: int) -> dict:
+    """``arch`` at full width, cut to its first ``layers`` layers, through
+    make_train_step and train_loop."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import train
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import TrainLoopConfig, train_loop
-    full = configs.get_config("olmoe-1b-7b", smoke=args.lm_smoke)
-    cfg = dataclasses.replace(full, num_layers=min(TRAIN_OLMOE_LAYERS,
-                                                   full.num_layers))
+    full = configs.get_config(arch, smoke=args.lm_smoke)
+    cfg = dataclasses.replace(full, num_layers=min(layers, full.num_layers))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_model(cfg, seed=0, device=dev)
@@ -1959,16 +2073,70 @@ def train_olmoe(args, dev) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     del params
-    out = train_readings("olmoe-1b-7b", cfg, res, dev, lr=3e-4)
+    out = train_readings(arch, cfg, res, dev, lr=3e-4)
     out.update(wall_s=wall, peak_gib=peak,
                peak_gib_with_readings=torch.cuda.max_memory_allocated()
                / 2**30,
                reduced={"num_layers": [full.num_layers, cfg.num_layers]})
-    log(f"olmoe-1b-7b ({cfg.num_layers} of {full.num_layers} layers): "
+    log(f"{arch} ({cfg.num_layers} of {full.num_layers} layers): "
         f"{TRAIN_STEPS} steps in {wall:.2f} s, peak device memory "
         f"{peak:.2f} GiB")
     del res
     free_device()
+    return out
+
+
+def card_vs_cpu_step(arch: str, dev) -> dict:
+    """At the smoke config (f32): the gradients and one train step on the
+    card against the same on the CPU, from the same seeded parameters:
+    loss, aux, grad norm within LM_CPU_RTOL, each gradient leaf within
+    LM_CPU_RTOL of its largest |g|. An encoder-decoder takes its own
+    step on seeded frames (aux 0)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = configs.get_config(arch, smoke=True)
+    rng = np.random.default_rng(16)
+    toks = rng.integers(0, cfg.vocab_size, (4, 33))
+    opt, sched = AdamWConfig(lr=1e-3), {"warmup": 2, "total": 20}
+    if cfg.is_encoder_decoder:
+        audio = rng.standard_normal((4, 48, cfg.d_model)).astype(np.float32)
+        step = lm.make_encdec_train_step(cfg, opt, schedule_kwargs=sched)
+    else:
+        step = lm.make_train_step(cfg, opt, schedule_kwargs=sched)
+    ran = {}
+    for where in ("cpu", "card"):
+        model = lm.init_model(cfg, seed=0, device="cpu")
+        d = dev if where == "card" else torch.device("cpu")
+        model = model.to(d)
+        t = torch.as_tensor(toks, device=d)
+        if cfg.is_encoder_decoder:
+            batch = {"audio_embeds": torch.as_tensor(audio, device=d),
+                     "tokens": t}
+            grads, _, _ = lm.encdec_grads_of(model, batch, cfg)
+        else:
+            batch = {"tokens": t}
+            grads, _, _ = lm.grads_of(model, t, cfg)
+        _, _, metrics = step(model, adamw_init(model), batch)
+        ran[where] = ({n: g.cpu() for n, g in grads.items()},
+                      {k: float(v) for k, v in metrics.items()})
+    out = {"grad_max_rel": 0.0}
+    for k in ran["cpu"][1]:
+        if k == "lr_scale":
+            continue
+        got, want = ran["card"][1][k], ran["cpu"][1][k]
+        if abs(got - want) > LM_CPU_RTOL * abs(want):
+            raise AssertionError(f"{arch} smoke: card {k} {got}, CPU {want}")
+        out[f"{k}_rel"] = abs(got - want) / max(abs(want), 1e-30)
+    for n, want in ran["cpu"][0].items():
+        scale = float(want.abs().max())
+        err = float((ran["card"][0][n] - want).abs().max())
+        if err > LM_CPU_RTOL * scale:
+            raise AssertionError(f"{arch} smoke: grad {n} differs by {err} "
+                                 f"(max |g| {scale})")
+        out["grad_max_rel"] = max(out["grad_max_rel"], err / max(scale,
+                                                                 1e-30))
     return out
 
 
@@ -1985,33 +2153,9 @@ def train_smoke_checks(arch: str, dev) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import TrainLoopConfig, train_loop
     cfg = configs.get_config(arch, smoke=True)
-    toks = np.random.default_rng(16).integers(0, cfg.vocab_size, (4, 33))
     step = lm.make_train_step(cfg, AdamWConfig(lr=1e-3),
                               schedule_kwargs={"warmup": 2, "total": 20})
-    ran = {}
-    for where in ("cpu", "card"):
-        model = lm.init_model(cfg, seed=0, device="cpu")
-        d = dev if where == "card" else torch.device("cpu")
-        model = model.to(d)
-        t = torch.as_tensor(toks, device=d)
-        grads, _, _ = lm.grads_of(model, t, cfg)
-        _, _, metrics = step(model, adamw_init(model), {"tokens": t})
-        ran[where] = ({n: g.cpu() for n, g in grads.items()},
-                      {k: float(v) for k, v in metrics.items()})
-    out = {"grad_max_rel": 0.0}
-    for k in ("loss", "aux_loss", "grad_norm"):
-        got, want = ran["card"][1][k], ran["cpu"][1][k]
-        if abs(got - want) > LM_CPU_RTOL * abs(want):
-            raise AssertionError(f"{arch} smoke: card {k} {got}, CPU {want}")
-        out[f"{k}_rel"] = abs(got - want) / max(abs(want), 1e-30)
-    for n, want in ran["cpu"][0].items():
-        scale = float(want.abs().max())
-        err = float((ran["card"][0][n] - want).abs().max())
-        if err > LM_CPU_RTOL * scale:
-            raise AssertionError(f"{arch} smoke: grad {n} differs by {err} "
-                                 f"(max |g| {scale})")
-        out["grad_max_rel"] = max(out["grad_max_rel"], err / max(scale,
-                                                                 1e-30))
+    out = card_vs_cpu_step(arch, dev)
     data = data_config(cfg, batch=4, seq=16, seed=1)
     ck = tempfile.mkdtemp(prefix="train_smoke_")
     try:
@@ -2180,7 +2324,8 @@ def train_phase(args, dev) -> dict:
            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "remat": "dots",
            "bf16_reduced_precision_reduction": bf16_reduction_flag()}
     out["qwen3-1.7b"] = train_qwen3(args, dev)
-    out["olmoe-1b-7b"] = train_olmoe(args, dev)
+    out["olmoe-1b-7b"] = train_cut(args, dev, "olmoe-1b-7b",
+                                   TRAIN_OLMOE_LAYERS)
     out["smoke"] = {arch: train_smoke_checks(arch, dev) for arch in LM_ARCHS}
     out["bf16_flag"] = bf16_flag_readings(args, dev)
     free_device()
@@ -2191,6 +2336,274 @@ def train_phase(args, dev) -> dict:
         raise AssertionError(f"phase 2g left {left:.2f} GiB allocated")
     out["tolerances"] = {"card_vs_cpu_rel": LM_CPU_RTOL,
                          "restart_abs": TRAIN_RESTART_TOL}
+    return out
+
+
+# phase 2h: the three model families beyond GQA. Serving: Falcon-Mamba-7B
+# and MiniCPM3-4B at full depth, Jamba-v0.1 at its first 5 of 32 layers
+# (every layer kind it has: Mamba with a dense FF, Mamba with the 16-expert
+# MoE, GQA with a dense FF at layer 4; the whole model's 51.3 B parameters
+# do not fit); training: Falcon-Mamba at 8 of 64 layers and MiniCPM3 at 16
+# of 62 (their train state beside the earlier phases' resident memory),
+# Whisper-base whole
+FAM_SERVE = (("falcon-mamba-7b", 0), ("minicpm3-4b", 0),
+             ("jamba-v0.1-52b", 5))          # (arch, layers; 0 = all)
+FAM_TRAIN = (("falcon-mamba-7b", 8), ("minicpm3-4b", 16))
+FAM_REQUESTS, FAM_NEW = 6, 16
+WHISPER_FRAMES, WHISPER_MAX_LEN = 1500, 448   # 30 s of audio; max target
+WHISPER_PREFILL, WHISPER_STEPS = 64, 32
+
+
+def fam_requests(vocab: int, seed: int):
+    """FAM_REQUESTS requests of FAM_NEW new tokens: prompts of 64-512
+    tokens, the fifth (a slot refill) LM_LONG_PROMPT long (six scan
+    chunks; MLA's chunked attention)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 513, FAM_REQUESTS)
+    lens[4] = LM_LONG_PROMPT
+    return [(rng.integers(0, vocab, int(n)).astype(np.int32), FAM_NEW)
+            for n in lens]
+
+
+def cut_config(cfg, layers: int):
+    return dataclasses.replace(cfg, num_layers=min(layers, cfg.num_layers)) \
+        if layers else cfg
+
+
+def serve_family(args, dev, arch: str, layers: int) -> dict:
+    """One decoder family's serving checks at full width (``serve_and_check``
+    on FAM_REQUESTS requests), the profile of its decode step and its peak
+    memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    full = configs.get_config(arch, smoke=args.lm_smoke)
+    cfg = cut_config(full, layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    pbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"{arch}{' (smoke)' if args.lm_smoke else ''}, {cfg.num_layers} of "
+        f"{full.num_layers} layers: {cfg.param_count():,} params by the "
+        f"config's count, {pbytes / 1e9:.2f} GB in f32, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    m = serve_and_check(cfg, params, dev, arch, pbytes,
+                        fam_requests(cfg.vocab_size, seed=18))
+    m["reduced"] = {"num_layers": [full.num_layers, cfg.num_layers]}
+    del params
+    free_device()
+    m["peak_gib"] = overall_peak(m)
+    log(f"{arch}: peak device memory {m['peak_gib']:.2f} GiB; decode bound "
+        f"{m['serve']['decode_bound_ms']:.3f} ms a step at the engine's "
+        f"{m['serve']['weights_gb']:.2f} GB of weights")
+    return m
+
+
+def whisper_audio(cfg, dev, batch: int, seed: int):
+    """Seeded frame embeddings (the stub frontend's input)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((batch, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                       device=dev)
+
+
+def whisper_decode_bytes(cfg, wparams, batch: int, positions) -> float:
+    """The bytes a decode step at ``positions`` (their mean) must move:
+    the decoder's weights and the embedding table (it embeds and
+    unembeds; the encoder's weights are not read), every layer's self
+    K/V up to the step's position and cross K/V of WHISPER_FRAMES
+    frames in the compute dtype, and the f32 logits."""
+    import torch
+    weights = sum(q.numel() * q.element_size()
+                  for name, q in wparams.named_parameters()
+                  if not name.startswith(("encoder.", "enc_final")))
+    per_pos = (2 * batch * cfg.num_kv_heads * cfg.head_dim_
+               * torch.finfo(cfg.compute_dtype).bits // 8
+               * (cfg.decoder_layers or cfg.num_layers))
+    self_len = float(np.mean([j + 1 for j in positions]))
+    return (weights + per_pos * (self_len + WHISPER_FRAMES)
+            + batch * cfg.vocab_size * 4)
+
+
+def whisper_serve(args, dev) -> dict:
+    """Whisper-base at full width and depth on 2 x 1,500 frames: in f32 a
+    prefill of WHISPER_PREFILL tokens (``apply_encdec(mode="prefill")``)
+    into a 448-token cache, then WHISPER_STEPS decode steps, each step's
+    logits within LM_TF_RTOL of one full forward (``mode="train"``); then
+    in bf16 on the engine's weights the encoder, prefill and decode ms and
+    torch.profiler's idle share of one decode step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_config("whisper-base", smoke=args.lm_smoke)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_model(cfg, seed=0, device=dev)
+    audio = whisper_audio(cfg, dev, 2, seed=19)
+    p, n = WHISPER_PREFILL, WHISPER_PREFILL + WHISPER_STEPS
+    toks = torch.as_tensor(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (2, n)), device=dev)
+
+    def prefill_then_decode(c, model, times=None):
+        caches = lm.init_caches(c, 2, WHISPER_MAX_LEN, dtype=c.compute_dtype,
+                                device=dev, src_len=WHISPER_FRAMES)
+        lo, caches, _ = tf.apply_encdec(model, audio, toks[:, :p], c,
+                                        mode="prefill", caches=caches)
+        steps = [lo[:, -1]]
+        decode = lm.make_encdec_decode_step(c)
+        for j in range(p, n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo, caches = decode(model, caches, toks[:, j:j + 1],
+                                torch.full((2,), j, device=dev))
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+            steps.append(lo)
+        return torch.stack(steps, 1), caches
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        want = tf.apply_encdec(params, audio, toks, c32)[0][:, p - 1:]
+        got, _ = prefill_then_decode(c32, params)
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    del got, want
+    if rel > LM_TF_RTOL:
+        raise AssertionError(f"whisper-base: f32 decode differs from the "
+                             f"full forward by {rel} of max |logit|")
+    wparams = lm.cast_weights(params, cfg.compute_dtype)
+    with torch.no_grad():
+        enc_ms = host_ms(lambda: tf.apply_encoder(wparams, audio, cfg,
+                                                  remat="none"), 3)
+        caches = lm.init_caches(cfg, 2, WHISPER_MAX_LEN,
+                                dtype=cfg.compute_dtype, device=dev,
+                                src_len=WHISPER_FRAMES)
+        pre_ms = host_ms(lambda: tf.apply_encdec(
+            wparams, audio, toks[:, :p], cfg, mode="prefill",
+            caches=caches), 3)
+        dec_ms = []
+        _, caches = prefill_then_decode(cfg, wparams, dec_ms)
+        decode = lm.make_encdec_decode_step(cfg)
+        prof = profile_fn("whisper-base decode step, batch 2",
+                          lambda: decode(wparams, caches, toks[:, -1:],
+                                         torch.full((2,), n - 1,
+                                                    device=dev)))
+    dbytes = whisper_decode_bytes(cfg, wparams, 2, range(p, n))
+    del params, wparams, caches, audio
+    free_device()
+    out = {"frames": WHISPER_FRAMES, "prefill_tokens": p,
+           "decode_steps": WHISPER_STEPS, "max_len": WHISPER_MAX_LEN,
+           "teacher_forced_f32_rel": rel, "max_logit": scale,
+           "encoder_ms": enc_ms, "prefill_ms": pre_ms,
+           "decode_ms": dec_ms, "decode_ms_median": float(np.median(dec_ms)),
+           "decode_bytes": dbytes,
+           "decode_bound_ms": dbytes / HBM_BYTES_PER_S * 1e3,
+           "profile": prof,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"whisper-base serve: {WHISPER_STEPS} decode steps after a "
+        f"{p}-token prefill against one full forward (f32): "
+        f"{rel:.3g} of max |logit| {scale:.3g}; bf16 encoder ms "
+        f"{[round(t, 2) for t in enc_ms]}, prefill (encoder included) ms "
+        f"{[round(t, 2) for t in pre_ms]}, decode median "
+        f"{out['decode_ms_median']:.2f} ms (bound "
+        f"{out['decode_bound_ms']:.4f}); peak {out['peak_gib']:.2f} GiB")
+    return out
+
+
+def whisper_train(args, dev) -> dict:
+    """Whisper-base at full width and depth through
+    ``make_encdec_train_step``: TRAIN_STEPS steps of 2 x (1,500 frames,
+    448 tokens of the synthetic stream), AdamW lr 3e-4 with the train
+    CLI's schedule; every loss finite and the last below the first."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = configs.get_config("whisper-base", smoke=args.lm_smoke)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_model(cfg, seed=0, device=dev)
+    state = adamw_init(params)
+    step = lm.make_encdec_train_step(
+        cfg, AdamWConfig(lr=3e-4),
+        schedule_kwargs=train.schedule_for(TRAIN_STEPS))
+    data = SyntheticLM(data_config(cfg, seq=WHISPER_MAX_LEN))
+
+    def batch(i):
+        return {"audio_embeds": whisper_audio(cfg, dev, TRAIN_BATCH, 30 + i),
+                "tokens": torch.as_tensor(data.batch(i), device=dev)}
+
+    hist, times = [], []
+    for i in range(TRAIN_STEPS):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        hist.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b = batch(TRAIN_STEPS)
+    out = step_readings(
+        "whisper-base", hist, times,
+        sum(p.numel() for p in params.parameters()),
+        encdec_train_flops(cfg, TRAIN_BATCH, WHISPER_FRAMES, WHISPER_MAX_LEN),
+        TRAIN_BATCH * WHISPER_MAX_LEN, lambda: step(params, state, b))
+    del params, state, b
+    free_device()
+    out.update(frames_per_s=TRAIN_BATCH * WHISPER_FRAMES
+               / out["step_ms_median"] * 1e3, peak_gib=peak)
+    log(f"whisper-base train: {out['frames_per_s']:.0f} frames/s; peak "
+        f"{peak:.2f} GiB")
+    return out
+
+
+def families_phase(args, dev) -> dict:
+    """Phase 2h: Mamba, MLA and the encoder-decoder through serving and
+    training at full width (smoke configs with ``--lm-smoke``), and every
+    family's smoke config on the card against the CPU. Returns the
+    ``{"families": ...}`` line."""
+    import torch
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"device memory resident at the phase's start {resident:.2f} GiB")
+    out = {"resident_gib": resident, "serve": {}, "train": {},
+           "card_vs_cpu": {}}
+    for arch, layers in FAM_SERVE:
+        out["serve"][arch] = serve_family(args, dev, arch, layers)
+    out["serve"]["whisper-base"] = whisper_serve(args, dev)
+    for arch, layers in FAM_TRAIN:
+        out["train"][arch] = train_cut(args, dev, arch, layers)
+    out["train"]["whisper-base"] = whisper_train(args, dev)
+    for arch in [a for a, _ in FAM_SERVE] + ["whisper-base"]:
+        r = out["card_vs_cpu"][arch] = {
+            "serve": lm_card_vs_cpu(arch, dev),
+            "train_step": card_vs_cpu_step(arch, dev)}
+        log(f"{arch} smoke, card against CPU (f32): prefill + 8 decode "
+            f"steps max abs diff {r['serve']['max_abs']:.3g} (max |logit| "
+            f"{r['serve']['max_logit']:.3g}); train step "
+            f"{json.dumps(r['train_step'])}")
+    card = torch.cuda.mem_get_info(dev)[1] / 2**30
+    top = max(m["peak_gib"] for part in ("serve", "train")
+              for m in out[part].values())
+    out.update(card_gib=card, headroom_gib=card - top)
+    log(f"the phase's highest peak {top:.2f} GiB of the card's {card:.2f} "
+        f"GiB: {card - top:.2f} GiB of headroom")
+    free_device()
+    left = torch.cuda.memory_allocated() / 2**30 - resident
+    log(f"device memory left allocated by the phase {left:.3f} GiB, "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    if left > 0.25:
+        raise AssertionError(f"phase 2h left {left:.2f} GiB allocated")
+    out["tolerances"] = {"batched_vs_alone_rel": LM_BATCH_RTOL,
+                         "teacher_forced_f32_rel": LM_TF_RTOL,
+                         "teacher_forced_bf16_replayed_over_bf16_vs_f32":
+                         LM_TF_BF16_FACTOR,
+                         "card_vs_cpu_rel": LM_CPU_RTOL}
     return out
 
 
@@ -2206,8 +2619,8 @@ def main() -> int:
     ap.add_argument("--shards", type=int, default=4,
                     help="logical shards of card 0 in phase 2e")
     ap.add_argument("--lm-smoke", action="store_true",
-                    help="run phases 2f and 2g at the smoke configs of "
-                    "Qwen3-1.7B and OLMoE-1B-7B instead of their full width")
+                    help="run phases 2f, 2g and 2h at the smoke configs of "
+                    "their models instead of their full width")
     args = ap.parse_args()
 
     import torch
@@ -2604,6 +3017,14 @@ def main() -> int:
                  + ("the smoke configs" if args.lm_smoke else "full width")
                  + " of " + " and ".join(LM_ARCHS))
     train_line = train_phase(args, torch.device("cuda", 0))
+    done()
+
+    # ---------------- 2h. Mamba, MLA, encoder-decoder ----------------
+    done = phase("2h. Mamba, MLA and the encoder-decoder at "
+                 + ("the smoke configs" if args.lm_smoke else "full width")
+                 + " of " + ", ".join(a for a, _ in FAM_SERVE)
+                 + " and whisper-base")
+    families_line = families_phase(args, torch.device("cuda", 0))
     done()
 
     # ---------------- 3. kernels vs plain ----------------
@@ -3044,11 +3465,13 @@ def main() -> int:
     sharded_line["card"] = smi
     lm_line["card"] = smi
     train_line["card"] = smi
+    families_line["card"] = smi
     print(json.dumps({"serving": serving_line}))
     print(json.dumps({"sharded": sharded_line}))
     print(json.dumps({"lm": lm_line}))
     train_line["cohen"] = cohen_line
     print(json.dumps({"train": train_line}))
+    print(json.dumps({"families": families_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Attention: GQA (+qk-norm, sliding window, softcap, M-RoPE).
+"""Attention: GQA (+qk-norm, sliding window, softcap, M-RoPE), MLA and
+cross-attention.
 
-The port of the GQA half of ``repro.models.attention``. The core is the
+The port of ``repro.models.attention``. The core is the
 reference's arithmetic in torch ops: scores in f32 from compute-dtype
 operands, ``NEG_INF`` masking, softmax in f32, probabilities rounded to
 the value dtype before the weighted sum. Inputs of at most 1024 query and
@@ -12,8 +13,15 @@ over the KV cache.
 ``torch.nn.functional.scaled_dot_product_attention`` is not used: it has
 no softcap and scales at another point, so its bits differ.
 
-MLA (MiniCPM3) and cross-attention (Whisper) wait for their port
-(ROADMAP queue 1, item 8d).
+MLA follows MiniCPM3/DeepSeek-V2: low-rank Q and KV projections with a
+decoupled RoPE branch. Train and prefill rebuild the full K/V and reuse
+the shared core (causal; like the reference, they take no window);
+decode uses the *absorbed* form, scores against the latent cache
+``{'kv_lat', 'k_rope'}`` directly. Cross-attention (Whisper's decoder)
+attends to K/V computed once from the encoder output.
+
+Each of the reference's ``preferred_element_type=f32`` products is an
+f32 product of operands already rounded to the compute dtype.
 """
 from __future__ import annotations
 
@@ -152,7 +160,8 @@ class GQA(nn.Module):
 
 
 def apply_gqa(params: GQA, x, cfg: ModelConfig, *, window: int, positions,
-              cache=None, cache_len=None, mode: str = "train"):
+              cache=None, cache_len=None, mode: str = "train",
+              causal: bool = True):
     """x: (B, L, D). cache: {'k','v'} (B, S_max, Hkv, Dh) or None.
     Returns (out, new_cache).
 
@@ -173,7 +182,7 @@ def apply_gqa(params: GQA, x, cfg: ModelConfig, *, window: int, positions,
     k = apply_rope(k, positions, cfg.rope_theta, sections)
 
     if mode == "train":
-        out = attention_core(q, k, v, window=window,
+        out = attention_core(q, k, v, causal=causal, window=window,
                              softcap=cfg.attn_logit_softcap)
         new_cache = None
     elif mode == "prefill":
@@ -181,7 +190,7 @@ def apply_gqa(params: GQA, x, cfg: ModelConfig, *, window: int, positions,
         vc = cache["v"].to(v.dtype)
         kc.narrow(1, 0, l).copy_(k)
         vc.narrow(1, 0, l).copy_(v)
-        out = attention_core(q, k, v, window=window,
+        out = attention_core(q, k, v, causal=causal, window=window,
                              softcap=cfg.attn_logit_softcap)
         new_cache = {"k": kc, "v": vc}
     elif mode == "decode":
@@ -193,10 +202,7 @@ def apply_gqa(params: GQA, x, cfg: ModelConfig, *, window: int, positions,
         kc[rows, idx] = k[:, 0]
         vc[rows, idx] = v[:, 0]
         # direct masked attention over the cache (q position = idx)
-        pk = torch.arange(kc.shape[1], device=x.device)
-        keep = pk[None] < (idx + 1)[:, None]
-        if window:
-            keep &= pk[None] >= torch.clamp(idx + 1 - window, min=0)[:, None]
+        keep = _decode_keep(idx, kc.shape[1], window)
         qg = (q * scalar_in(dh ** -0.5, q.dtype)).reshape(
             b, 1, hkv, hq // hkv, dh)
         s = _scores(qg, kc, cfg.attn_logit_softcap)
@@ -209,4 +215,155 @@ def apply_gqa(params: GQA, x, cfg: ModelConfig, *, window: int, positions,
         raise ValueError(mode)
 
     out = dense(out.reshape(b, l, hq * dh), params.wo)
+    return out, new_cache
+
+
+def _decode_keep(idx, s_max: int, window: int):
+    """(B, S) mask of the cache positions a decode step at ``idx`` reads:
+    those up to and including ``idx``, the last ``window`` of them."""
+    pk = torch.arange(s_max, device=idx.device)
+    keep = pk[None] < (idx + 1)[:, None]
+    if window:
+        keep &= pk[None] >= torch.clamp(idx + 1 - window, min=0)[:, None]
+    return keep
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (Whisper's decoder)
+# ---------------------------------------------------------------------------
+
+class CrossAttention(nn.Module):
+    """The reference's ``init_cross_attention``: ``wq``, ``wk``, ``wv``,
+    ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        d, dh, hq, hkv = (cfg.d_model, cfg.head_dim_, cfg.num_heads,
+                          cfg.num_kv_heads)
+        kw = dict(device=device, generator=generator)
+        self.wq = make_param((d, hq * dh), **kw)
+        self.wk = make_param((d, hkv * dh), **kw)
+        self.wv = make_param((d, hkv * dh), **kw)
+        self.wo = make_param((hq * dh, d), **kw)
+
+
+def apply_cross_attention(params: CrossAttention, x, enc_kv,
+                          cfg: ModelConfig):
+    """x (B, L, D) attends to ``enc_kv`` = {'k', 'v'} (B, S, Hkv, Dh),
+    not causally."""
+    b, l, _ = x.shape
+    dh, hq = cfg.head_dim_, cfg.num_heads
+    q = dense(x, params.wq).reshape(b, l, hq, dh)
+    out = attention_core(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return dense(out.reshape(b, l, hq * dh), params.wo)
+
+
+def encode_cross_kv(params: CrossAttention, enc_out, cfg: ModelConfig):
+    b, s, _ = enc_out.shape
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim_
+    return {"k": dense(enc_out, params.wk).reshape(b, s, hkv, dh),
+            "v": dense(enc_out, params.wv).reshape(b, s, hkv, dh)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """The parameters of one MLA layer (the reference's ``init_mla``);
+    ``forward`` is :func:`apply_mla`."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.num_heads
+        qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
+        kw = dict(device=device, generator=generator)
+        self.wq_a = make_param((d, cfg.q_lora_rank), **kw)
+        self.q_norm = ones_param((cfg.q_lora_rank,), device=device)
+        self.wq_b = make_param((cfg.q_lora_rank, h * qk_d), **kw)
+        self.wkv_a = make_param((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                                **kw)
+        self.kv_norm = ones_param((cfg.kv_lora_rank,), device=device)
+        self.wk_b = make_param((cfg.kv_lora_rank, h * cfg.qk_nope_dim), **kw)
+        self.wv_b = make_param((cfg.kv_lora_rank, h * cfg.v_head_dim), **kw)
+        self.wo = make_param((h * cfg.v_head_dim, d), **kw)
+
+    def forward(self, x, **kw):
+        return apply_mla(self, x, self.cfg, **kw)
+
+
+def _mla_qkv(params: MLA, x, cfg: ModelConfig, positions):
+    """Shared projections. Returns q_nope, q_rope, kv_lat, k_rope."""
+    b, l, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_lat = rms_norm(dense(x, params.wq_a), params.q_norm - 1.0,
+                     cfg.norm_eps)
+    q = dense(q_lat, params.wq_b).reshape(b, l, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = dense(x, params.wkv_a)
+    kv_lat = rms_norm(kv_a[..., :r], params.kv_norm - 1.0, cfg.norm_eps)
+    k_rope = kv_a[..., r:].reshape(b, l, 1, dr)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, kv_lat, k_rope
+
+
+def _f32_einsum(spec: str, *operands):
+    """``einsum(..., preferred_element_type=f32)`` of operands already in
+    the compute dtype."""
+    return torch.einsum(spec, *(t.float() for t in operands))
+
+
+def apply_mla(params: MLA, x, cfg: ModelConfig, *, positions, cache=None,
+              cache_len=None, mode: str = "train", window: int = 0):
+    """MLA attention. cache: {'kv_lat' (B,S,r), 'k_rope' (B,S,dr)}.
+    ``window`` applies to decode only, as in the reference."""
+    b, l, _ = x.shape
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope, kv_lat, k_rope = _mla_qkv(params, x, cfg, positions)
+
+    if mode in ("train", "prefill"):
+        # rebuild the full K/V and reuse the shared core, which scales by
+        # q.shape[-1] ** -0.5 == (dn + dr) ** -0.5
+        k_nope = dense(kv_lat, params.wk_b).reshape(b, l, h, dn)
+        v = dense(kv_lat, params.wv_b).reshape(b, l, h, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(b, l, h, dr)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = attention_core(q, k, v, causal=True)
+        new_cache = None
+        if mode == "prefill":
+            kc = cache["kv_lat"].to(kv_lat.dtype)
+            rc = cache["k_rope"].to(k_rope.dtype)
+            kc.narrow(1, 0, l).copy_(kv_lat)
+            rc.narrow(1, 0, l).copy_(k_rope)
+            new_cache = {"kv_lat": kc, "k_rope": rc}
+    elif mode == "decode":
+        # absorbed form over the latent cache
+        idx = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        idx = idx.expand(b)
+        rows = torch.arange(b, device=x.device)
+        kc = cache["kv_lat"].to(kv_lat.dtype)
+        rc = cache["k_rope"].to(k_rope.dtype)
+        kc[rows, idx] = kv_lat[:, 0]
+        rc[rows, idx] = k_rope[:, 0]
+        new_cache = {"kv_lat": kc, "k_rope": rc}
+        wk_b = params.wk_b.reshape(r, h, dn).to(q_nope.dtype)
+        q_lat = _f32_einsum("bqhd,rhd->bqhr", q_nope, wk_b).to(x.dtype)
+        s = (_f32_einsum("bqhr,bkr->bhqk", q_lat, kc)
+             + _f32_einsum("bqhd,bkd->bhqk", q_rope, rc)) * (dn + dr) ** -0.5
+        keep = _decode_keep(idx, kc.shape[1], window)
+        s = s.masked_fill(~keep[:, None, None, :], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx_lat = _f32_einsum("bhqk,bkr->bqhr", p.to(kc.dtype), kc)
+        wv_b = params.wv_b.reshape(r, h, dv).to(x.dtype)
+        out = _f32_einsum("bqhr,rhd->bqhd", ctx_lat.to(x.dtype),
+                          wv_b).to(x.dtype)
+    else:
+        raise ValueError(mode)
+
+    out = dense(out.reshape(b, l, h * dv), params.wo)
     return out, new_cache

@@ -5,9 +5,12 @@ The reference (``repro.models``) stacks the layers of each position of
 the repeating layer period over the period's repeats: scanned layer ``i``
 is ``blocks[i % period]`` at index ``i // period``, and the ``tail``
 layers follow at ``n_scan * period + t``. The port keeps one module a
-layer in layer order. Trees are nested dicts/lists of numpy arrays (for
-example ``jax.tree_util.tree_map(np.asarray, init_model(key, cfg)[0])``),
-so this module needs no JAX.
+layer in layer order. The encoder-decoder's tree is unrolled already
+(lists ``encoder``, ``decoder``, ``cross``, ``cross_ln``; caches
+``{'self': [...], 'cross': [...]}``), so list item ``i`` is the port's
+``name.i``. Trees are nested dicts/lists of numpy arrays (for example
+``jax.tree_util.tree_map(np.asarray, init_model(key, cfg)[0])``), so
+this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -38,9 +41,10 @@ def reference_layers(cfg: ModelConfig, tree) -> List[dict]:
 
 
 def _flatten(sub, prefix: str, out: Dict[str, np.ndarray]):
-    for key, v in sub.items():
-        name = f"{prefix}.{key}" if prefix else key
-        if isinstance(v, dict):
+    items = sub.items() if isinstance(sub, dict) else enumerate(sub)
+    for key, v in items:
+        name = f"{prefix}.{key}" if prefix else str(key)
+        if isinstance(v, (dict, list, tuple)):
             _flatten(v, name, out)
         else:
             out[name] = np.asarray(v)
@@ -50,6 +54,8 @@ def _flatten(sub, prefix: str, out: Dict[str, np.ndarray]):
 def reference_named(cfg: ModelConfig, tree) -> Dict[str, np.ndarray]:
     """A reference params-shaped tree (the params, their gradients, an
     AdamW moment) by the port's parameter names."""
+    if cfg.is_encoder_decoder:
+        return _flatten(tree, "", {})
     flat = _flatten({k: v for k, v in tree.items()
                      if k not in ("blocks", "tail")}, "", {})
     for i, layer in enumerate(reference_layers(cfg, tree)):
@@ -57,9 +63,10 @@ def reference_named(cfg: ModelConfig, tree) -> Dict[str, np.ndarray]:
     return flat
 
 
-def from_reference(cfg: ModelConfig, tree, device="cuda") -> tf.Decoder:
-    """The port's model holding the reference's parameters ``tree``."""
-    model = tf.Decoder(cfg, device="meta")
+def from_reference(cfg: ModelConfig, tree, device="cuda"):
+    """The port's model (a ``Decoder`` or an ``EncDec``) holding the
+    reference's parameters ``tree``."""
+    model = tf.model_class(cfg)(cfg, device="meta")
     model.load_state_dict({n: torch.tensor(a, device=device)
                            for n, a in reference_named(cfg, tree).items()},
                           assign=True)
@@ -79,7 +86,11 @@ def opt_state_from_reference(cfg: ModelConfig, state,
 
 
 def caches_from_reference(cfg: ModelConfig, caches, device="cuda"):
-    """The reference's decoder cache tree as the port's per-layer list."""
-    return [{n: torch.tensor(np.asarray(c), device=device)
-             for n, c in layer.items()}
-            for layer in reference_layers(cfg, caches)]
+    """The reference's decoder cache tree as the port's per-layer list;
+    an encoder-decoder's ``{'self', 'cross'}`` lists as the port's."""
+    def layers(tree):
+        return [{n: torch.tensor(np.asarray(c), device=device)
+                 for n, c in layer.items()} for layer in tree]
+    if cfg.is_encoder_decoder:
+        return {k: layers(caches[k]) for k in ("self", "cross")}
+    return layers(reference_layers(cfg, caches))

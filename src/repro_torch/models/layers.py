@@ -34,6 +34,11 @@ def ones_param(shape: Tuple[int, ...], *, device) -> nn.Parameter:
     return nn.Parameter(torch.ones(shape, device=device, dtype=torch.float32))
 
 
+def zeros_param(shape: Tuple[int, ...], *, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device,
+                                    dtype=torch.float32))
+
+
 def scalar_in(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``. A Python scalar that multiplies a
     bf16 array in JAX is rounded to bf16 first; torch keeps it in f32

@@ -1,13 +1,15 @@
 """Model-level entry points: init, the losses, the train step, caches,
 prefill and decode steps.
 
-The port of ``repro.models.lm`` for decoder-only models. Parameters are
-a :class:`~repro_torch.models.transformer.Decoder`; caches a list with
-one ``{'k', 'v'}`` dict a layer; gradients and optimizer moments dicts
-keyed by the parameters' names. The serving steps run under
-``no_grad``; the train step takes its gradients with autograd and
-updates the parameters in place. The encoder-decoder's train and decode
-steps wait for its port (ROADMAP queue 1, item 8d).
+The port of ``repro.models.lm``. Parameters are a
+:class:`~repro_torch.models.transformer.Decoder`, or an
+:class:`~repro_torch.models.transformer.EncDec` for the encoder-decoder;
+a decoder's caches a list with one dict a layer; gradients and optimizer
+moments dicts keyed by the parameters' names. The serving steps run
+under ``no_grad``; the train steps take their gradients with autograd and
+update the parameters in place. The encoder-decoder has its own train
+and decode steps; its prefill is ``transformer.apply_encdec(...,
+mode="prefill")``.
 """
 from __future__ import annotations
 
@@ -28,20 +30,22 @@ from .config import ModelConfig
 # (``dense``, the expert einsums, the embedding gather and ``unembed``);
 # norms and everything else stay f32
 MATMUL_WEIGHTS = ("embed", "lm_head", "wq", "wk", "wv", "wo", "wi", "wg",
-                  "router")
+                  "router", "in_proj", "x_proj", "dt_proj", "out_proj",
+                  "conv_w", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b")
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0,
-               device="cuda") -> tf.Decoder:
-    """f32 parameters drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``; raises when CUDA is asked for and absent."""
+def init_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+    """A :class:`~.transformer.Decoder`, or an :class:`~.transformer.EncDec`
+    for an encoder-decoder config, of f32 parameters drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``; raises when
+    CUDA is asked for and absent."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return tf.Decoder(cfg, device=dev, generator=gen)
+    return tf.model_class(cfg)(cfg, device=dev, generator=gen)
 
 
-def cast_weights(params: tf.Decoder, dtype: torch.dtype) -> tf.Decoder:
+def cast_weights(params, dtype: torch.dtype):
     """A model whose matmul weights are held in ``dtype``, the values each
     call would cast them to, made once; the other parameters are shared
     with ``params``. ``params`` itself when nothing needs a cast."""
@@ -49,7 +53,7 @@ def cast_weights(params: tf.Decoder, dtype: torch.dtype) -> tf.Decoder:
     if all(t.dtype == dtype for n, t in state.items()
            if n.rsplit(".", 1)[-1] in MATMUL_WEIGHTS):
         return params
-    out = tf.Decoder(params.cfg, device="meta")
+    out = type(params)(params.cfg, device="meta")
     out.load_state_dict({n: t.to(dtype)
                          if n.rsplit(".", 1)[-1] in MATMUL_WEIGHTS else t
                          for n, t in state.items()}, assign=True)
@@ -126,19 +130,25 @@ def loss_fn(params, tokens, cfg: ModelConfig, *, remat: str = "dots",
     return loss + aux_weight * aux, loss, aux
 
 
-def grads_of(params, tokens, cfg: ModelConfig, *, remat: str = "dots",
-             aux_weight: float = 0.01):
-    """(grads by parameter name, loss, aux) of ``loss_fn``; the grad of a
-    parameter the loss does not reach is zeros, as JAX's."""
+def _grads(params, fn):
+    """(grads by parameter name, loss, aux) of ``fn() -> (total, loss,
+    aux)``; the grad of a parameter the total does not reach is zeros, as
+    JAX's."""
     named = dict(params.named_parameters())
     with torch.enable_grad():
-        total, loss, aux = loss_fn(params, tokens, cfg, remat=remat,
-                                   aux_weight=aux_weight)
+        total, loss, aux = fn()
         gs = torch.autograd.grad(total, list(named.values()),
                                  allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(named.items(), gs)}
     return grads, loss.detach(), aux.detach()
+
+
+def grads_of(params, tokens, cfg: ModelConfig, *, remat: str = "dots",
+             aux_weight: float = 0.01):
+    """(grads by parameter name, loss, aux) of ``loss_fn``."""
+    return _grads(params, lambda: loss_fn(params, tokens, cfg, remat=remat,
+                                          aux_weight=aux_weight))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
@@ -184,6 +194,38 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     return train_step
 
 
+def encdec_grads_of(params, batch, cfg: ModelConfig):
+    """(grads by parameter name, loss, aux = 0) of an encoder-decoder batch
+    {'audio_embeds' (B, S, D), 'tokens' (B, L+1)}: the plain cross entropy
+    over full logits, remat 'full', as the reference's (which does not add
+    its aux)."""
+    def fn():
+        tokens = batch["tokens"].long()
+        logits, _, aux = tf.apply_encdec(params, batch["audio_embeds"],
+                                         tokens[:, :-1], cfg, mode="train")
+        loss = cross_entropy(logits.float(), tokens[:, 1:])
+        return loss, loss, aux
+    return _grads(params, fn)
+
+
+def make_encdec_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                           schedule_kwargs: Optional[dict] = None):
+    """Whisper-style: train_step(params, opt_state, batch) -> (params,
+    opt_state, {'loss', 'grad_norm'}); batch = {'audio_embeds' (B,S,D),
+    'tokens' (B,L+1)}. No microbatches and no gradient compression, as
+    the reference's; the parameters and moments are updated in place."""
+    schedule_kwargs = schedule_kwargs or {"warmup": 100, "total": 10_000}
+
+    def train_step(params, opt_state, batch):
+        grads, loss, _ = encdec_grads_of(params, batch, cfg)
+        lr_scale = cosine_schedule(opt_state.step, **schedule_kwargs)
+        params, opt_state, gnorm = adamw_update(params, grads, opt_state,
+                                                opt_cfg, lr_scale)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
 # ---------------------------------------------------------------------------
 # Serving steps
 # ---------------------------------------------------------------------------
@@ -191,8 +233,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
 def make_prefill_step(cfg: ModelConfig):
     """prefill(params, caches, tokens) -> (logits_last, caches).
 
-    Only the last position is projected to vocab.
+    Only the last position is projected to vocab. An encoder-decoder has
+    no such step: the reference's passes the tokens as the audio
+    (``src/repro/models/lm.py:190-195``) and fails; its prefill is
+    ``transformer.apply_encdec(..., mode="prefill", caches=...)``.
     """
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: the reference's prefill "
+            "step passes the tokens as the audio (src/repro/models/"
+            "lm.py:190-195) and fails; prefill with transformer."
+            "apply_encdec(params, audio_embeds, tokens, cfg, "
+            "mode=\"prefill\", caches=...)")
 
     @torch.no_grad()
     def prefill(params, caches, tokens):
@@ -217,12 +269,30 @@ def make_decode_step(cfg: ModelConfig):
     return decode
 
 
+def make_encdec_decode_step(cfg: ModelConfig):
+    """decode(params, caches, token (B,1), cache_len) -> (logits, caches)
+    of an encoder-decoder whose caches a prefill filled."""
+
+    @torch.no_grad()
+    def decode(params, caches, token, cache_len):
+        logits, caches, _ = tf.apply_encdec(params, None, token, cfg,
+                                            mode="decode", caches=caches,
+                                            cache_len=cache_len)
+        return logits[:, 0], caches
+
+    return decode
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cuda"):
+                dtype=torch.bfloat16, device="cuda", src_len: int = 0):
+    """A decoder's per-layer cache list, or an encoder-decoder's
+    ``{'self', 'cross'}`` caches (cross K/V ``src_len`` frames long,
+    ``max_len`` when 0)."""
+    dev = resolve_device(device)
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(tf.UNPORTED["encdec"])
-    return tf.init_decoder_cache(cfg, batch, max_len, dtype,
-                                 resolve_device(device))
+        return tf.init_encdec_cache(cfg, batch, max_len, src_len or max_len,
+                                    dtype, dev)
+    return tf.init_decoder_cache(cfg, batch, max_len, dtype, dev)
 
 
 def slice_caches(caches, start: int, size: int):

@@ -3,8 +3,10 @@ against the JAX reference, on the CPU.
 
 The reference's parameters (``repro.models.lm.init_model``) are carried
 to the port with ``repro_torch.models.convert``; tokens come from numpy
-seeds. Logits of the six GQA smoke configs — full forward, prefill and
-each decode step — and the caches after decoding match the reference to
+seeds. Logits of the nine decoder-only smoke configs (six GQA, then
+Falcon-Mamba, Jamba and MiniCPM3) — full forward, prefill and each
+decode step — and the caches after decoding (``{'k', 'v'}``,
+``{'conv', 'ssm'}``, ``{'kv_lat', 'k_rope'}``) match the reference to
 rtol 1e-4 / atol 1e-5 (f32 on both sides, other summation orders).
 Parameter counts match exactly.
 """
@@ -27,8 +29,8 @@ from repro_torch.models import transformer as tf  # noqa: E402
 TOL = dict(rtol=1e-4, atol=1e-5)
 GQA_ARCHS = ("qwen3-1.7b", "gemma3-1b", "granite-3-8b", "qwen2-vl-72b",
              "llama4-scout-17b-a16e", "olmoe-1b-7b")
-UNPORTED = ("falcon-mamba-7b", "jamba-v0.1-52b", "minicpm3-4b",
-            "whisper-base")
+DECODER_ARCHS = GQA_ARCHS + ("falcon-mamba-7b", "jamba-v0.1-52b",
+                             "minicpm3-4b")
 
 
 def reference_model(arch, seed=0):
@@ -68,7 +70,7 @@ def test_registry_matches_reference():
 # Decoder and LM steps
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", GQA_ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
 def test_logits_match_reference(arch):
     """Full forward (mode train), prefill of 16 tokens and 8 decode steps
     of a 2-row batch; then the caches."""
@@ -95,12 +97,13 @@ def test_logits_match_reference(arch):
         got, cache = dec(model, cache, torch.tensor(toks[:, j:j + 1]),
                          torch.full((2,), j))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    for got_l, want_l in zip(cache,
-                             convert.caches_from_reference(cfg, rcache,
-                                                           "cpu")):
-        for n in ("k", "v"):
+    want = convert.caches_from_reference(cfg, rcache, "cpu")
+    assert len(cache) == len(want) == cfg.num_layers
+    for got_l, want_l in zip(cache, want):
+        assert sorted(got_l) == sorted(want_l)
+        for n in want_l:
             np.testing.assert_allclose(got_l[n].numpy(), want_l[n].numpy(),
-                                       **TOL)
+                                       err_msg=n, **TOL)
 
 
 def test_float_embedding_inputs():
@@ -131,11 +134,21 @@ def test_gemma3_layer_mapping():
         assert layer.kind.window == cfg.window_of(i)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        lm.init_model(cfg, device="cpu")
+def test_init_model_builds_all_ten():
+    """Every architecture builds on the CPU: the encoder-decoder as an
+    ``EncDec``, the rest as a ``Decoder`` whose layers hold the mixer of
+    their kind."""
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch, smoke=True)
+        model = lm.init_model(cfg, device="cpu")
+        assert isinstance(model, tf.model_class(cfg)), arch
+        if cfg.is_encoder_decoder:
+            assert len(model.encoder) == cfg.encoder_layers
+            continue
+        for layer, kind in zip(model.layers, tf.layer_kinds(cfg)):
+            want = ("Mamba" if kind.mixer == "mamba" else
+                    "MLA" if cfg.attention_type == "mla" else "GQA")
+            assert type(layer.mixer).__name__ == want, arch
 
 
 def test_init_model_seeded_on_its_device():

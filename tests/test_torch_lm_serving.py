@@ -79,10 +79,14 @@ def serve_both(arch, dtype="float32", n=5, slots=2, max_new=6):
     return cfg, (reng, rreqs, rlog), (peng, preqs, plog)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b",
+                                  "falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "minicpm3-4b"])
 def test_engine_matches_reference_engine(arch):
     """5 requests on 2 slots (as tests/test_substrate.py): the same tokens,
-    the same logits at every prefill and decode step, the same caches."""
+    the same logits at every prefill and decode step, the same caches
+    (Jamba's list mixes ``{'k', 'v'}`` and ``{'conv', 'ssm'}``; a Mamba
+    slot refilled by prefill has its state overwritten whole)."""
     cfg, (reng, rreqs, rlog), (peng, preqs, plog) = serve_both(arch)
     assert all(p.done and len(p.output) == 6 for p in preqs)
     assert [p.output for p in preqs] == [r.output for r in rreqs]
@@ -93,9 +97,10 @@ def test_engine_matches_reference_engine(arch):
         np.testing.assert_allclose(got, want, **TOL, err_msg=name)
     want = convert.caches_from_reference(cfg, reng.caches, "cpu")
     for got_l, want_l in zip(peng.caches, want):
-        for n in ("k", "v"):
+        assert sorted(got_l) == sorted(want_l)
+        for n in want_l:
             np.testing.assert_allclose(got_l[n].numpy(), want_l[n].numpy(),
-                                       **TOL)
+                                       err_msg=n, **TOL)
 
 
 def test_engine_caches_take_the_compute_dtype():
@@ -213,11 +218,16 @@ def run_module(*argv, timeout=300):
 
 
 def test_serve_cli():
-    out = run_module("repro_torch.launch.serve", "--arch", "olmoe-1b-7b",
-                     "--device", "cpu", "--requests", "3", "--max-new", "4")
-    assert out.returncode == 0, out.stderr
-    lines = out.stdout.strip().splitlines()
-    assert len(lines) == 3 and all(" 4 tokens -> " in ln for ln in lines)
+    for arch in ("olmoe-1b-7b", "falcon-mamba-7b"):
+        out = run_module("repro_torch.launch.serve", "--arch", arch,
+                         "--device", "cpu", "--requests", "3", "--max-new",
+                         "4")
+        assert out.returncode == 0, out.stderr
+        lines = out.stdout.strip().splitlines()
+        assert len(lines) == 3 and all(" 4 tokens -> " in ln for ln in lines)
+    out = run_module("repro_torch.launch.serve", "--arch", "whisper-base",
+                     "--device", "cpu")
+    assert out.returncode != 0 and "decoder-only serving CLI" in out.stderr
     if not torch.cuda.is_available():
         out = run_module("repro_torch.launch.serve", "--arch", "qwen3-1.7b")
         assert out.returncode != 0 and "no CUDA device" in out.stderr

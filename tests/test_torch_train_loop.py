@@ -368,8 +368,11 @@ def test_train_cli(tmp_path):
                      "--smoke", "--device", "cpu")
     assert out.returncode != 0 and "enc-dec" in out.stderr
     out = run_module("repro_torch.launch.train", "--arch", "minicpm3-4b",
-                     "--smoke", "--device", "cpu")
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+                     "--smoke", "--steps", "2", "--batch", "2", "--seq", "16",
+                     "--device", "cpu", "--log-every", "1")
+    assert out.returncode == 0, out.stderr
+    assert len(re.findall(r"^\[train\] step \d loss ", out.stdout,
+                          re.M)) == 2
     if not torch.cuda.is_available():
         out = run_module("repro_torch.launch.train", "--arch",
                          "qwen3-1.7b", "--smoke", "--steps", "1")
