@@ -118,6 +118,19 @@ Phases, each of which raises on failure:
    each, losses finite and falling, step ms, bound, idle share and peak;
    each family's smoke config on the card against the CPU (logits and a
    train step, 1e-4); the phase frees all it allocated;
+2i. ``launch/``: ``make_local_mesh()`` is a world-size-1 ``DeviceMesh``
+   (``nccl``) and ``make_shard_mesh()`` resolves to the card; the dry-run's
+   cells on that 1 x 1 mesh for Qwen3-1.7B's decode step at phase 2f's
+   engine shape and phase 2g's train step, each step also measured here
+   (median ms, peak over the resident), the run failing when a step is
+   predicted not to fit 80 GB or its roofline bound is above the measured
+   time; then the dry-run CLI in subprocesses (Qwen3-1.7B on every shape,
+   Jamba-v0.1 on ``train_4k``, both production meshes, traced on meta)
+   while phase 2's banded and power-law matrices and one serving request
+   go through ``devices=make_shard_mesh()`` (C bit-identical to the
+   unsharded C, the kernels' counts read as the ``mesh`` path): every
+   record ``ok`` or ``skipped`` with its config's reason, rendered by the
+   report CLI;
 3. kernels against their plain PyTorch versions, on the card, on real bins
    of the phase-2, 2c and 2d paths at the shapes those paths launch them
    with (the hash kernel on every hash bin of the power-law plan and the
@@ -156,7 +169,8 @@ Phases, each of which raises on failure:
 Before the last line come ``{"serving": {...}}`` (phase 2d's numbers),
 ``{"sharded": {...}}`` (phase 2e's), ``{"lm": {...}}`` (phase 2f's),
 ``{"train": {...}}`` (phase 2g's and the Cohen check's),
-``{"families": {...}}`` (phase 2h's) and ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+``{"families": {...}}`` (phase 2h's), ``{"dryrun": {...}}`` (phase 2i's)
+and ``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits
 with a non-zero code and prints no result.
 """
@@ -2606,6 +2620,283 @@ def families_phase(args, dev) -> dict:
                          "card_vs_cpu_rel": LM_CPU_RTOL}
     return out
 
+# phase 2i: launch/ (meshes, the sharding policy, the dry-run) on the card.
+# (a) the meshes as device sets; (b) the dry-run CLI in subprocesses, full
+# width on meta (it never touches the card); (c) the dry-run's cells for
+# two steps this smoke runs (Qwen3-1.7B's decode at phase 2f's engine
+# shape, phase 2g's train step) on a 1 x 1 local mesh, against the same
+# steps measured here
+DRYRUN_RUNS = (("qwen3-1.7b", "all", 6), ("jamba-v0.1-52b", "train_4k", 2))
+DRYRUN_TIMEOUT = 300        # seconds a dry-run subprocess may take
+DRYRUN_STEPS = 10           # timed decode steps (train: TRAIN_STEPS // 2)
+
+
+def start_dryruns(outdir: str) -> list:
+    """The dry-run CLI for each of DRYRUN_RUNS, on both production meshes,
+    each in a process group of its own (its cell workers with it)."""
+    procs = []
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    for arch, shape, jobs in DRYRUN_RUNS:
+        out = os.path.join(outdir, f"dryrun_{arch}_{shape}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "both", "--jobs", str(jobs),
+               "--out", out]
+        procs.append((out, cmd, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)))
+    return procs
+
+
+def stop_dryruns(procs) -> None:
+    """Kill the process group of every dry-run still running."""
+    import signal
+    for *_, p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+
+
+def finish_dryruns(procs) -> dict:
+    """Wait for the dry-runs (killing a process group that overruns), hold
+    every record to ``ok`` or to ``skipped`` with its config's reason, and
+    render them with the report CLI."""
+    from repro_torch import configs
+    out = {}
+    for path, cmd, t0, p in procs:
+        try:
+            text, _ = p.communicate(
+                timeout=max(1.0, t0 + DRYRUN_TIMEOUT - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{' '.join(cmd[2:])}: over "
+                                 f"{DRYRUN_TIMEOUT} s") from None
+        wall = time.perf_counter() - t0
+        if p.returncode:
+            raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+        with open(path) as f:
+            recs = json.load(f)
+        for r in recs:
+            label = f"{r['arch']} x {r['shape']} x {r['mesh']}"
+            if r["status"] == "skipped":
+                want = configs.shape_skips(r["arch"]).get(r["shape"])
+                if r["reason"] != want:
+                    raise AssertionError(f"{label}: skipped for "
+                                         f"{r['reason']!r}, want {want!r}")
+            elif r["status"] != "ok":
+                raise AssertionError(f"{label}: {r['status']} "
+                                     f"{r.get('error')}\n"
+                                     f"{r.get('traceback', '')}")
+        out[os.path.basename(path)] = {
+            "wall_s": wall, "records": len(recs),
+            "ok": sum(r["status"] == "ok" for r in recs),
+            "skipped": sum(r["status"] == "skipped" for r in recs),
+            "cells": {f"{r['shape']} {r['mesh']}": {
+                "per_device_gb": r["per_device_bytes"] / 1e9,
+                "fits_80g": r["fits_80g"], "wall_s": r["wall_s"],
+                "bound_s": max(r["roofline"][k] for k in
+                               ("compute_s", "memory_s", "collective_s")),
+                "bottleneck": r["roofline"]["bottleneck"]}
+                for r in recs if r["status"] == "ok"}}
+        log(f"{' '.join(cmd[2:])}: {len(recs)} records, "
+            f"{out[os.path.basename(path)]['ok']} ok, "
+            f"{out[os.path.basename(path)]['skipped']} skipped, in "
+            f"{wall:.1f} s")
+    rendered = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.report"]
+        + [path for path, *_ in procs], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")))
+    for line in rendered.stdout.splitlines():
+        log("  " + line)
+    return out
+
+
+def local_meshes(dev):
+    """(a), first half: ``make_local_mesh()`` is a world-size-1
+    ``DeviceMesh`` and ``make_shard_mesh()`` resolves to the card.
+    Returns the line's fields, the local mesh and the shard mesh."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import dispatch
+    from repro_torch.launch import mesh as lmesh
+    local = lmesh.make_local_mesh(device_type=dev.type)
+    if not isinstance(local, DeviceMesh) or tuple(local.mesh.shape) != (1, 1) \
+            or torch.distributed.get_world_size() != 1:
+        raise AssertionError(f"make_local_mesh: {local}")
+    backend = torch.distributed.get_backend()
+    shard = lmesh.make_shard_mesh(device_type=dev.type)
+    devs = dispatch.resolve_devices(shard)
+    want = (torch.device("cuda", 0),) if dev.type == "cuda" else (dev,)
+    if devs != want or dispatch.resolve_devices(local) != want:
+        raise AssertionError(f"make_shard_mesh() resolves to {devs}, the "
+                             f"local mesh to "
+                             f"{dispatch.resolve_devices(local)}")
+    log(f"make_local_mesh(): {local} (backend {backend}); "
+        f"make_shard_mesh(): {shard.shape} -> {devs}")
+    return {"local_mesh": str(local), "backend": backend,
+            "shard_mesh": [str(d) for d in devs], "calls": {}}, local, shard
+
+
+def mesh_calls(out, shard, kd, kh, kl, mats, results, served) -> dict:
+    """(a), second half: ``ocean_spgemm`` on phase 2's banded and
+    power-law matrices and one ``SpGEMMService`` request through
+    ``devices=`` the shard mesh, each C bit-identical to its unsharded C
+    (phase 2's cold call, phase 2d's serial uncached call), with the
+    kernels' counts set to 0 just before and read just after. Returns the
+    path's launches."""
+    import torch
+    from repro_torch import serving
+    from repro_torch.core import planner, workflow
+    devs = out["shard_mesh"]
+    reset_counts(kd, kh, kl)
+    for name, a in mats[:2]:
+        t0 = time.perf_counter()
+        c, rep = workflow.ocean_spgemm(a, a, cache=planner.PlanCache(),
+                                       devices=shard)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rep.n_shards != len(devs) or not same_csr_on_card(
+                c, results[name][0][0]):
+            raise AssertionError(f"{name} on the shard mesh: n_shards "
+                                 f"{rep.n_shards}, C differs from phase 2's")
+        log(f"{name} on make_shard_mesh(): C bit-identical to phase 2's "
+            f"({rep.workflow}, {rep.n_shards} shard, {wall:.2f} s)")
+        out["calls"][name] = {"wall_s": wall, "n_shards": rep.n_shards}
+        del c
+    sname, (sa, _) = next(iter(served["mats"].items()))
+    svc = serving.SpGEMMService(devices=shard)
+    c, rep = svc.multiply(sa, served["b"])
+    if not same_csr_on_card(c, served["refs"][sname]):
+        raise AssertionError(f"SpGEMMService(devices=mesh) {sname}: C "
+                             "differs from the serial uncached call")
+    log(f"SpGEMMService(devices=make_shard_mesh()) {sname} @ B: C "
+        "bit-identical to phase 2d's serial uncached call")
+    del c, svc
+    launched = read_counts(kd, kh, kl)
+    if not launched["dense_window"]:
+        raise AssertionError(f"mesh path: launches {launched}")
+    log(f"mesh path launches {json.dumps(launched)}")
+    return launched
+
+
+def local_cell(label, cfg, shape, policy, measure, smi) -> dict:
+    """The dry-run's cell for ``shape`` on the local mesh, and ``measure()``
+    (median ms, peak GiB over the resident) of the same step on the card:
+    fails when the step is predicted not to fit or its bound is above the
+    measured time."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.evaluate({"arch": cfg.name, "shape": shape.name,
+                           "mesh": "1x1", "chips": 1}, cfg, shape, policy,
+                          remat="dots", microbatch=0)
+    if rec["status"] != "ok":
+        raise AssertionError(f"{label}: {rec['error']}\n{rec['traceback']}")
+    rf = rec["roofline"]
+    bound_ms = max(rf[k] for k in ("compute_s", "memory_s",
+                                   "collective_s")) * 1e3
+    ms, peak = measure()
+    mem = rec["artifacts"]["full"]["mem"]
+    log(f"{label}: predicted {rec['per_device_bytes'] / 1e9:.2f} GB a "
+        f"device (argument {mem['argument_bytes'] / 1e9:.2f}, output "
+        f"{mem['output_bytes'] / 1e9:.2f}, temp "
+        f"{mem['temp_bytes'] / 1e9:.2f}), fits 80 GB {rec['fits_80g']}; "
+        f"bound {bound_ms:.3f} ms ({rf['bottleneck']}: compute "
+        f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.3f}, "
+        f"collective {rf['collective_s'] * 1e3:.3f}); measured median "
+        f"{ms:.2f} ms, peak {peak:.2f} GiB over the resident; {smi}")
+    if not rec["fits_80g"]:
+        raise AssertionError(f"{label} ran on the card but is predicted not "
+                             "to fit")
+    if bound_ms > ms:
+        raise AssertionError(f"{label}: bound {bound_ms:.3f} ms above the "
+                             f"measured {ms:.3f} ms")
+    return {"predicted_bytes": rec["per_device_bytes"], "mem": mem,
+            "fits_80g": rec["fits_80g"], "bound_ms": bound_ms,
+            "bottleneck": rf["bottleneck"],
+            "terms_ms": {k: rf[k] * 1e3 for k in ("compute_s", "memory_s",
+                                                   "collective_s")},
+            "measured_ms_median": ms, "measured_peak_gib_over_resident": peak,
+            "trace_s": rec["wall_s"]}
+
+
+def measured(fn, runs: int):
+    """``fn`` once to warm, then ``runs`` times: the median ms (host clock
+    between synchronisations) and the peak GiB over what was allocated
+    before."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = float(np.median(host_ms(fn, runs)))
+    return ms, (torch.cuda.max_memory_allocated() - resident) / 2**30
+
+
+def dryrun_phase(args, dev, kd, kh, kl, mats, results, served, path_counts,
+                 smi) -> dict:
+    """Phase 2i. Returns the fields of the ``{"dryrun": ...}`` line."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import sharding
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    out = {"card": smi}
+    free_device()
+    resident = torch.cuda.memory_allocated() / 2**30
+    outdir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(outdir, exist_ok=True)
+
+    out["mesh"], local, shard = local_meshes(dev)
+    # (c) before the dry-run subprocesses start, so that their tracing does
+    # not share the host with the timed steps
+    cfg = configs.get_config("qwen3-1.7b", smoke=args.lm_smoke)
+    params = lm.cast_weights(lm.init_model(cfg, seed=0, device=dev),
+                             cfg.compute_dtype)
+    caches = lm.init_caches(cfg, LM_SLOTS, LM_MAX_LEN,
+                            dtype=cfg.compute_dtype, device=dev)
+    token = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), device=dev)
+    lens = torch.full((LM_SLOTS,), LM_MAX_LEN // 2, dtype=torch.int32,
+                      device=dev)
+    decode = lm.make_decode_step(cfg)
+    tp = sharding.ShardingPolicy(local, "tp")
+    out["decode"] = local_cell(
+        f"2i {cfg.name} decode, {LM_SLOTS} slots x {LM_MAX_LEN}", cfg,
+        ShapeSpec("engine_decode", "decode", LM_MAX_LEN, LM_SLOTS), tp,
+        lambda: measured(lambda: decode(params, caches, token, lens),
+                         DRYRUN_STEPS), smi)
+    del params, caches
+    free_device()
+    params = lm.init_model(cfg, seed=0, device=dev)
+    state = adamw_init(params)
+    step = lm.make_train_step(cfg, AdamWConfig(), remat="dots")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                     device=dev)}
+    fsdp = sharding.ShardingPolicy(local, "fsdp")
+    out["train"] = local_cell(
+        f"2i {cfg.name} train step, {TRAIN_BATCH} x {TRAIN_SEQ}, remat dots",
+        cfg, ShapeSpec("train_step", "train", TRAIN_SEQ, TRAIN_BATCH), fsdp,
+        lambda: measured(lambda: step(params, state, batch),
+                         TRAIN_STEPS // 2), smi)
+    del params, state, batch
+    free_device()
+
+    # (b) the dry-run CLI in subprocesses, the rest of (a) meanwhile
+    procs = start_dryruns(outdir)
+    try:
+        path_counts["mesh"] = out["mesh"]["launches"] = mesh_calls(
+            out["mesh"], shard, kd, kh, kl, mats, results, served)
+        out["cli"] = finish_dryruns(procs)
+    finally:
+        stop_dryruns(procs)
+    torch.distributed.destroy_process_group()
+    left = torch.cuda.memory_allocated() / 2**30 - resident
+    if left > 0.25:
+        raise AssertionError(f"phase 2i left {left:.2f} GiB allocated")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3004,12 +3295,6 @@ def main() -> int:
                  + " of " + " and ".join(LM_ARCHS))
     lm_line, lm_demo = lm_phase(args, torch.device("cuda", 0), kd, kh, kl,
                                 path_counts)
-    counts = {k: sum(pc[k] for pc in path_counts.values())
-              for k in read_counts(kd, kh, kl)}
-    by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
-               for k in counts}
-    log(f"launches on every path: {json.dumps(counts)}")
-    log(f"launches by path: {json.dumps(by_path)}")
     done()
 
     # ---------------- 2g. LM training ----------------
@@ -3025,6 +3310,19 @@ def main() -> int:
                  + " of " + ", ".join(a for a, _ in FAM_SERVE)
                  + " and whisper-base")
     families_line = families_phase(args, torch.device("cuda", 0))
+    done()
+
+    # ---------------- 2i. launch/: meshes and the dry-run ----------------
+    done = phase("2i. meshes, the dry-run CLI, and the dry-run's cells "
+                 "against the card")
+    dryrun_line = dryrun_phase(args, torch.device("cuda", 0), kd, kh, kl,
+                               mats, results, served, path_counts, smi)
+    counts = {k: sum(pc[k] for pc in path_counts.values())
+              for k in read_counts(kd, kh, kl)}
+    by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
+               for k in counts}
+    log(f"launches on every path: {json.dumps(counts)}")
+    log(f"launches by path: {json.dumps(by_path)}")
     done()
 
     # ---------------- 3. kernels vs plain ----------------
@@ -3472,6 +3770,7 @@ def main() -> int:
     train_line["cohen"] = cohen_line
     print(json.dumps({"train": train_line}))
     print(json.dumps({"families": families_line}))
+    print(json.dumps({"dryrun": dryrun_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

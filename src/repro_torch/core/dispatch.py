@@ -19,11 +19,32 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..launch.mesh import LogicalMesh
 from ..obs import trace
 
 
 def _cuda_count() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _device_mesh_devices(mesh) -> Tuple[torch.device, ...]:
+    """The device of each rank of a ``torch.distributed`` ``DeviceMesh``,
+    row-major: ``cuda:{rank % device_count}``, or the mesh's device type
+    (``cpu``)."""
+    ranks = mesh.mesh.flatten().tolist()
+    if mesh.device_type == "cuda":
+        have = _cuda_count()
+        if not have:
+            raise ValueError("a CUDA device mesh, have 0 CUDA devices")
+        return tuple(torch.device("cuda", r % have) for r in ranks)
+    return tuple(torch.device(mesh.device_type) for _ in ranks)
+
+
+def _is_device_mesh(devices) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(devices, DeviceMesh)
 
 
 def resolve_devices(devices=None) -> Tuple[torch.device, ...]:
@@ -32,8 +53,11 @@ def resolve_devices(devices=None) -> Tuple[torch.device, ...]:
     ``None`` gives every CUDA device and an int N the first N; both raise
     ``ValueError`` when there are fewer. A sequence of devices or strings
     is taken in order, repeats allowed (logical shards of one card, or
-    ``["cpu"] * n``); a CUDA device it names must exist. A device mesh is
-    refused until ``launch/mesh.py`` is ported (ROADMAP queue 1, item 8e).
+    ``["cpu"] * n``); a CUDA device it names must exist. A mesh is
+    flattened in row-major order: a ``launch.mesh.LogicalMesh`` that holds
+    devices (``make_shard_mesh``; a production mesh, a shape only,
+    raises), or a ``DeviceMesh`` (``make_local_mesh``), each rank on
+    ``cuda:{rank % device_count}`` or on the CPU.
     """
     if devices is None or isinstance(devices, int):
         have = _cuda_count()
@@ -44,9 +68,13 @@ def resolve_devices(devices=None) -> Tuple[torch.device, ...]:
     if isinstance(devices, (str, torch.device)):
         raise TypeError(f"a device set is a sequence of devices, got "
                         f"{devices!r}; pass [{devices!r}]")
-    if hasattr(devices, "mesh") and hasattr(devices, "device_type"):
-        raise TypeError("device meshes wait for the port of launch/mesh.py "
-                        "(ROADMAP queue 1, item 8e); pass a device list")
+    if isinstance(devices, LogicalMesh):
+        if devices.devices is None:
+            raise ValueError(f"mesh {devices.shape} is a shape and holds no "
+                             "devices (make_shard_mesh gives one that does)")
+        devices = devices.devices
+    elif _is_device_mesh(devices):
+        devices = _device_mesh_devices(devices)
     devs = tuple(torch.device(d) for d in devices)
     if not devs:
         raise ValueError("empty device set")

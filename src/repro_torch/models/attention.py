@@ -34,6 +34,17 @@ from .layers import apply_rope, dense, make_param, ones_param, rms_norm, \
 
 NEG_INF = -1e30
 
+# Cost mode (``launch/dryrun.py``): the dry-run counts FLOPs and bytes of
+# its cost artifacts with one chunk the size of the sequence, as the
+# reference's (whose XLA cost analysis counts a loop body once); the
+# chunked program is what it traces for memory.
+_UNCHUNKED_FOR_COST = False
+
+
+def set_unchunked_for_cost(flag: bool):
+    global _UNCHUNKED_FOR_COST
+    _UNCHUNKED_FOR_COST = flag
+
 
 # ---------------------------------------------------------------------------
 # Core attention
@@ -78,6 +89,8 @@ def attention_core(q, k, v, *, causal: bool = True, window: int = 0,
     dv = v.shape[3]
     g = hq // hkv
     dev = q.device
+    if _UNCHUNKED_FOR_COST:
+        q_chunk, kv_chunk = max(q_chunk, lq), max(kv_chunk, lkv)
     qg = (q * scalar_in(dh ** -0.5, q.dtype)).reshape(b, lq, hkv, g, dh)
     kv_len_b = None
     if kv_len is not None:
@@ -147,13 +160,13 @@ class GQA(nn.Module):
         d, dh = cfg.d_model, cfg.head_dim_
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
         kw = dict(device=device, generator=generator)
-        self.wq = make_param((d, hq * dh), **kw)
-        self.wk = make_param((d, hkv * dh), **kw)
-        self.wv = make_param((d, hkv * dh), **kw)
-        self.wo = make_param((hq * dh, d), **kw)
+        self.wq = make_param((d, hq * dh), ("embed", "heads"), **kw)
+        self.wk = make_param((d, hkv * dh), ("embed", "kv"), **kw)
+        self.wv = make_param((d, hkv * dh), ("embed", "kv"), **kw)
+        self.wo = make_param((hq * dh, d), ("heads", "embed"), **kw)
         if cfg.qk_norm:
-            self.q_norm = ones_param((dh,), device=device)
-            self.k_norm = ones_param((dh,), device=device)
+            self.q_norm = ones_param((dh,), ("head_dim",), device=device)
+            self.k_norm = ones_param((dh,), ("head_dim",), device=device)
 
     def forward(self, x, **kw):
         return apply_gqa(self, x, self.cfg, **kw)
@@ -241,10 +254,10 @@ class CrossAttention(nn.Module):
         d, dh, hq, hkv = (cfg.d_model, cfg.head_dim_, cfg.num_heads,
                           cfg.num_kv_heads)
         kw = dict(device=device, generator=generator)
-        self.wq = make_param((d, hq * dh), **kw)
-        self.wk = make_param((d, hkv * dh), **kw)
-        self.wv = make_param((d, hkv * dh), **kw)
-        self.wo = make_param((hq * dh, d), **kw)
+        self.wq = make_param((d, hq * dh), ("embed", "heads"), **kw)
+        self.wk = make_param((d, hkv * dh), ("embed", "kv"), **kw)
+        self.wv = make_param((d, hkv * dh), ("embed", "kv"), **kw)
+        self.wo = make_param((hq * dh, d), ("heads", "embed"), **kw)
 
 
 def apply_cross_attention(params: CrossAttention, x, enc_kv,
@@ -279,15 +292,19 @@ class MLA(nn.Module):
         d, h = cfg.d_model, cfg.num_heads
         qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
         kw = dict(device=device, generator=generator)
-        self.wq_a = make_param((d, cfg.q_lora_rank), **kw)
-        self.q_norm = ones_param((cfg.q_lora_rank,), device=device)
-        self.wq_b = make_param((cfg.q_lora_rank, h * qk_d), **kw)
-        self.wkv_a = make_param((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
-                                **kw)
-        self.kv_norm = ones_param((cfg.kv_lora_rank,), device=device)
-        self.wk_b = make_param((cfg.kv_lora_rank, h * cfg.qk_nope_dim), **kw)
-        self.wv_b = make_param((cfg.kv_lora_rank, h * cfg.v_head_dim), **kw)
-        self.wo = make_param((h * cfg.v_head_dim, d), **kw)
+        r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        self.wq_a = make_param((d, r_q), ("embed", "lora"), **kw)
+        self.q_norm = ones_param((r_q,), ("lora",), device=device)
+        self.wq_b = make_param((r_q, h * qk_d), ("lora", "heads"), **kw)
+        self.wkv_a = make_param((d, r_kv + cfg.qk_rope_dim),
+                                ("embed", "lora"), **kw)
+        self.kv_norm = ones_param((r_kv,), ("lora",), device=device)
+        self.wk_b = make_param((r_kv, h * cfg.qk_nope_dim),
+                               ("lora", "heads"), **kw)
+        self.wv_b = make_param((r_kv, h * cfg.v_head_dim),
+                               ("lora", "heads"), **kw)
+        self.wo = make_param((h * cfg.v_head_dim, d), ("heads", "embed"),
+                             **kw)
 
     def forward(self, x, **kw):
         return apply_mla(self, x, self.cfg, **kw)

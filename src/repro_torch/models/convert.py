@@ -22,6 +22,7 @@ import torch
 from repro_torch.optim import AdamWState
 from . import transformer as tf
 from .config import ModelConfig
+from .layers import param_axes, set_param_axes
 
 
 def reference_layers(cfg: ModelConfig, tree) -> List[dict]:
@@ -67,10 +68,11 @@ def from_reference(cfg: ModelConfig, tree, device="cuda"):
     """The port's model (a ``Decoder`` or an ``EncDec``) holding the
     reference's parameters ``tree``."""
     model = tf.model_class(cfg)(cfg, device="meta")
+    axes = param_axes(model)
     model.load_state_dict({n: torch.tensor(a, device=device)
                            for n, a in reference_named(cfg, tree).items()},
                           assign=True)
-    return model
+    return set_param_axes(model, axes)
 
 
 def opt_state_from_reference(cfg: ModelConfig, state,

@@ -2,21 +2,33 @@
 
 The port of ``repro.models.layers``. Parameters are ``nn.Parameter``s in
 the reference's layout (``(d_in, d_out)`` for a projection), so a tree of
-the reference's arrays loads by name (``models/convert.py``). The logical
-axis names the reference carries for its sharding specs (``P``,
-``split_tree``) have no counterpart yet; they come with the port of
-``launch/sharding.py``.
+the reference's arrays loads by name (``models/convert.py``). Each
+parameter carries the reference's tuple of *logical axis names* as its
+``axes`` attribute (the counterpart of ``P`` and ``split_tree``), for
+example ``("embed", "mlp")``; ``repro_torch.launch.sharding`` maps them to
+mesh axes per parallelism policy. The port keeps one module a layer, so a
+layer's axes have no leading ``"layers"`` name.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 
-def make_param(shape: Tuple[int, ...], *, device,
+def tagged(value: torch.Tensor, axes: Tuple[str, ...]) -> nn.Parameter:
+    """``value`` as a parameter carrying the logical ``axes``, one name a
+    dimension."""
+    if len(axes) != value.ndim:
+        raise ValueError(f"axes {axes} for a {value.ndim}-d parameter")
+    p = nn.Parameter(value)
+    p.axes = tuple(axes)
+    return p
+
+
+def make_param(shape: Tuple[int, ...], axes: Tuple[str, ...], *, device,
                generator: Optional[torch.Generator] = None,
                scale: Optional[float] = None) -> nn.Parameter:
     """Normal(0, scale) f32 parameter; ``scale`` defaults to
@@ -27,16 +39,32 @@ def make_param(shape: Tuple[int, ...], *, device,
         scale = 1.0 / np.sqrt(fan_in)
     value = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32) * scale
-    return nn.Parameter(value)
+    return tagged(value, axes)
 
 
-def ones_param(shape: Tuple[int, ...], *, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(shape, device=device, dtype=torch.float32))
+def ones_param(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+               device) -> nn.Parameter:
+    return tagged(torch.ones(shape, device=device, dtype=torch.float32), axes)
 
 
-def zeros_param(shape: Tuple[int, ...], *, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, device=device,
-                                    dtype=torch.float32))
+def zeros_param(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+                device) -> nn.Parameter:
+    return tagged(torch.zeros(shape, device=device, dtype=torch.float32),
+                  axes)
+
+
+def param_axes(module: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """``{parameter name: logical axes}`` of a model."""
+    return {n: p.axes for n, p in module.named_parameters()}
+
+
+def set_param_axes(module: nn.Module, axes: Dict[str, Tuple[str, ...]]):
+    """Tag ``module``'s parameters with ``axes`` again: a
+    ``load_state_dict(..., assign=True)`` puts new ``nn.Parameter``s in
+    place of the tagged ones."""
+    for n, p in module.named_parameters():
+        p.axes = axes[n]
+    return module
 
 
 def scalar_in(value: float, dtype: torch.dtype) -> float:

@@ -14,7 +14,7 @@ mode="prefill")``.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +25,7 @@ from repro_torch.optim import (AdamWConfig, adamw_update, compress_grads,
                                cosine_schedule)
 from . import transformer as tf
 from .config import ModelConfig
+from .layers import param_axes, set_param_axes
 
 # the weights every call casts to the compute dtype before its matmul
 # (``dense``, the expert einsums, the embedding gather and ``unembed``);
@@ -54,10 +55,26 @@ def cast_weights(params, dtype: torch.dtype):
            if n.rsplit(".", 1)[-1] in MATMUL_WEIGHTS):
         return params
     out = type(params)(params.cfg, device="meta")
+    axes = param_axes(out)
     out.load_state_dict({n: t.to(dtype)
                          if n.rsplit(".", 1)[-1] in MATMUL_WEIGHTS else t
                          for n, t in state.items()}, assign=True)
-    return out
+    return set_param_axes(out, axes)
+
+
+def init_specs(cfg: ModelConfig) -> Dict[str, Tuple[str, ...]]:
+    """``{parameter name: logical axes}``, the reference's logical specs
+    (``src/repro/models/lm.py:40-55``) with the stacked layers' leading
+    ``"layers"`` name dropped, as the port keeps one module a layer."""
+    return param_axes(tf.model_class(cfg)(cfg, device="meta"))
+
+
+def abstract_params(cfg: ModelConfig):
+    """``(model on the meta device, init_specs(cfg))``: shapes and
+    logical axes, nothing allocated (the dry-run's path; the counterpart
+    of ``src/repro/models/lm.py:31-61``)."""
+    model = tf.model_class(cfg)(cfg, device="meta")
+    return model, param_axes(model)
 
 
 # ---------------------------------------------------------------------------

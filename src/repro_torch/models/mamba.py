@@ -23,9 +23,18 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from .config import ModelConfig
-from .layers import dense, make_param, ones_param, zeros_param
+from .layers import dense, make_param, ones_param, tagged, zeros_param
 
 SCAN_CHUNK = 256
+
+# cost mode (see attention.py and ``launch/dryrun.py``): one scan chunk the
+# length of the sequence
+_UNCHUNKED_FOR_COST = False
+
+
+def set_unchunked_for_cost(flag: bool):
+    global _UNCHUNKED_FOR_COST
+    _UNCHUNKED_FOR_COST = flag
 
 
 class Mamba(nn.Module):
@@ -38,19 +47,19 @@ class Mamba(nn.Module):
         d, di, ds = cfg.d_model, cfg.mamba_d_inner, cfg.mamba_d_state
         dtr, dc = cfg.mamba_dt_rank_, cfg.mamba_d_conv
         kw = dict(device=device, generator=generator)
-        self.in_proj = make_param((d, 2 * di), **kw)
-        self.conv_w = make_param((dc, di), scale=0.5, **kw)
-        self.conv_b = zeros_param((di,), device=device)
-        self.x_proj = make_param((di, dtr + 2 * ds), **kw)
-        self.dt_proj = make_param((dtr, di), **kw)
-        self.dt_bias = nn.Parameter(torch.full(
+        self.in_proj = make_param((d, 2 * di), ("embed", "mlp"), **kw)
+        self.conv_w = make_param((dc, di), ("conv", "mlp"), scale=0.5, **kw)
+        self.conv_b = zeros_param((di,), ("mlp",), device=device)
+        self.x_proj = make_param((di, dtr + 2 * ds), ("mlp", "lora"), **kw)
+        self.dt_proj = make_param((dtr, di), ("lora", "mlp"), **kw)
+        self.dt_bias = tagged(torch.full(
             (di,), float(np.log(np.expm1(np.float32(0.01)))),
-            dtype=torch.float32, device=device))
-        self.a_log = nn.Parameter(torch.log(torch.arange(
+            dtype=torch.float32, device=device), ("mlp",))
+        self.a_log = tagged(torch.log(torch.arange(
             1, ds + 1, dtype=torch.float32, device=device)).expand(
-                di, ds).contiguous())
-        self.d_skip = ones_param((di,), device=device)
-        self.out_proj = make_param((di, d), **kw)
+                di, ds).contiguous(), ("mlp", "state"))
+        self.d_skip = ones_param((di,), ("mlp",), device=device)
+        self.out_proj = make_param((di, d), ("mlp", "embed"), **kw)
 
     def forward(self, x, **kw):
         return apply_mamba(self, x, self.cfg, **kw)
@@ -168,7 +177,7 @@ def apply_mamba(params: Mamba, x, cfg: ModelConfig, *, cache=None,
 
     # pad to whole chunks; dt = 0 on the padded steps (after the softplus)
     # carries the state through them unchanged
-    chunk = min(SCAN_CHUNK, l)
+    chunk = l if _UNCHUNKED_FOR_COST else min(SCAN_CHUNK, l)
     n_chunks = -(-l // chunk)
     pad = n_chunks * chunk - l
     xc_p, dt_p = (F.pad(t, (0, 0, 0, pad)) for t in (xc, dt))

@@ -35,9 +35,9 @@ class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, *, device, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
-        self.wi = make_param((d_model, d_ff), **kw)
-        self.wg = make_param((d_model, d_ff), **kw)
-        self.wo = make_param((d_ff, d_model), **kw)
+        self.wi = make_param((d_model, d_ff), ("embed", "mlp"), **kw)
+        self.wg = make_param((d_model, d_ff), ("embed", "mlp"), **kw)
+        self.wo = make_param((d_ff, d_model), ("mlp", "embed"), **kw)
 
     def forward(self, x):
         return apply_mlp(self, x)
@@ -59,10 +59,10 @@ class MoE(nn.Module):
         e, d = cfg.moe_num_experts, cfg.d_model
         ff = cfg.moe_d_ff or cfg.d_ff
         kw = dict(device=device, generator=generator)
-        self.router = make_param((d, e), **kw)
-        self.wi = make_param((e, d, ff), **kw)
-        self.wg = make_param((e, d, ff), **kw)
-        self.wo = make_param((e, ff, d), **kw)
+        self.router = make_param((d, e), ("embed", "experts"), **kw)
+        self.wi = make_param((e, d, ff), ("experts", "embed", "mlp"), **kw)
+        self.wg = make_param((e, d, ff), ("experts", "embed", "mlp"), **kw)
+        self.wo = make_param((e, ff, d), ("experts", "mlp", "embed"), **kw)
         if cfg.moe_shared_expert:
             self.shared = MLP(d, cfg.d_ff, **kw)
 

@@ -90,7 +90,7 @@ class Layer(nn.Module):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         kw = dict(device=device, generator=generator)
-        self.ln1 = ones_param((cfg.d_model,), device=device)
+        self.ln1 = ones_param((cfg.d_model,), ("embed",), device=device)
         if kind.mixer != "attn":
             self.mixer = mamba_mod.Mamba(cfg, **kw)
         elif cfg.attention_type == "mla":
@@ -98,7 +98,8 @@ class Layer(nn.Module):
         else:
             self.mixer = attn_mod.GQA(cfg, **kw)
         if kind.ff != "none":
-            self.ln2 = ones_param((cfg.d_model,), device=device)
+            self.ln2 = ones_param((cfg.d_model,), ("embed",),
+                                  device=device)
         if kind.ff == "moe":
             self.ff = moe_mod.MoE(cfg, **kw)
         elif kind.ff == "dense":
@@ -169,10 +170,13 @@ class Decoder(nn.Module):
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         self.embed = make_param((cfg.vocab_size, cfg.d_model),
+                                ("vocab", "embed"),
                                 scale=cfg.d_model ** -0.5, **kw)
-        self.final_norm = ones_param((cfg.d_model,), device=device)
+        self.final_norm = ones_param((cfg.d_model,), ("embed",),
+                                     device=device)
         if not cfg.tie_embeddings:
-            self.lm_head = make_param((cfg.d_model, cfg.vocab_size), **kw)
+            self.lm_head = make_param((cfg.d_model, cfg.vocab_size),
+                                      ("embed", "vocab"), **kw)
         self.layers = nn.ModuleList(Layer(cfg, kind, **kw)
                                     for kind in layer_kinds(cfg))
 
@@ -295,9 +299,12 @@ class EncDec(nn.Module):
         dec_l = cfg.decoder_layers or cfg.num_layers
         kw = dict(device=device, generator=generator)
         self.embed = make_param((cfg.vocab_size, cfg.d_model),
+                                ("vocab", "embed"),
                                 scale=cfg.d_model ** -0.5, **kw)
-        self.enc_final = ones_param((cfg.d_model,), device=device)
-        self.dec_final = ones_param((cfg.d_model,), device=device)
+        self.enc_final = ones_param((cfg.d_model,), ("embed",),
+                                    device=device)
+        self.dec_final = ones_param((cfg.d_model,), ("embed",),
+                                    device=device)
         self.encoder = nn.ModuleList(Layer(cfg, ENCDEC_KIND, **kw)
                                      for _ in range(enc_l))
         self.decoder = nn.ModuleList(Layer(cfg, ENCDEC_KIND, **kw)
@@ -305,7 +312,8 @@ class EncDec(nn.Module):
         self.cross = nn.ModuleList(attn_mod.CrossAttention(cfg, **kw)
                                    for _ in range(dec_l))
         self.cross_ln = nn.ParameterList(
-            ones_param((cfg.d_model,), device=device) for _ in range(dec_l))
+            ones_param((cfg.d_model,), ("embed",), device=device)
+            for _ in range(dec_l))
 
 
 def model_class(cfg: ModelConfig):

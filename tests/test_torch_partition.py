@@ -12,7 +12,6 @@ sides sum in product-enumeration order).
 Hash tables are sized from a timed load factor, so both packages' tuning
 caches are replaced by pinned ones while this module runs.
 """
-import types
 
 import numpy as np
 import pytest
@@ -32,6 +31,8 @@ from repro.core.analysis import OceanConfig as ROceanConfig  # noqa: E402
 from repro_torch.core import (dispatch, formats, partition, planner,  # noqa: E402,E501
                               tuning, workflow)
 from repro_torch.core.analysis import OceanConfig  # noqa: E402
+from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
+                                     make_shard_mesh)
 
 RUNGS = (32, 64, 128, 256, 512, 1024, 2048, rtuning.REFERENCE_RUNG)
 SUITE_NAMES = [name for name, _ in rformats.make_suite(1)]
@@ -395,8 +396,13 @@ def test_resolve_devices_and_topology_key():
                 dispatch.resolve_devices(bad)
     with pytest.raises(ValueError, match="CUDA devices"):
         dispatch.resolve_devices([torch.device("cuda", have)])
-    mesh = types.SimpleNamespace(mesh=np.arange(2), device_type="cpu")
-    with pytest.raises(TypeError, match="queue 1, item 8"):
-        dispatch.resolve_devices(mesh)
+    # the mesh form (launch/mesh.py): a shard mesh is its devices, keyed
+    # as the same device list; a production mesh is a shape and raises
+    shard = make_shard_mesh(2, device_type="cpu")
+    assert dispatch.resolve_devices(shard) == (torch.device("cpu"),) * 2
+    assert dispatch.topology_key(dispatch.resolve_devices(shard)) == \
+        partition.topology_key(cpus(2))
+    with pytest.raises(ValueError, match="holds no devices"):
+        dispatch.resolve_devices(make_production_mesh())
     with pytest.raises(TypeError, match="sequence"):
         dispatch.resolve_devices("cpu")
