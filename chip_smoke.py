@@ -300,22 +300,24 @@ def library_product(a, runs: int):
     return time_cuda(lambda: t @ t, runs), int((t @ t)._nnz())
 
 
-def reset_counts(kd, kh, kl) -> None:
-    kd.spgemm_dense_slab.window_launches = 0
-    kd.spgemm_dense_slab.longrow_launches = 0
-    kd.spgemm_count_rows.launches = 0
-    kh.spgemm_hash_bin.launches = 0
-    kl.hll_merge.launches = 0
-    kl.hll_sketch.launches = 0
+# the kernels' launch counts as this script names them, by the wrappers'
+# ``kernel.launches`` label
+COUNTED = {"dense_window": "dense_window", "dense_longrow": "dense_longrow",
+           "hash": "hash", "hll_merge": "hll_merge",
+           "hll_sketch": "hll_sketch", "count": "count_rows"}
 
 
-def read_counts(kd, kh, kl) -> dict:
-    return {"dense_window": kd.spgemm_dense_slab.window_launches,
-            "dense_longrow": kd.spgemm_dense_slab.longrow_launches,
-            "hash": kh.spgemm_hash_bin.launches,
-            "hll_merge": kl.hll_merge.launches,
-            "hll_sketch": kl.hll_sketch.launches,
-            "count": kd.spgemm_count_rows.launches}
+def reset_counts() -> None:
+    """Count the kernels' launches afresh, in a new metrics registry that
+    the wrappers count into (``kernel.launches{kernel}``)."""
+    from repro_torch.obs import metrics
+    metrics.install_registry(metrics.MetricsRegistry())
+
+
+def read_counts() -> dict:
+    from repro_torch.obs import metrics
+    got = metrics.launch_counts()
+    return {k: got.get(label, 0) for k, label in COUNTED.items()}
 
 
 def tuned_load_factors(tuning, dev) -> dict:
@@ -846,7 +848,7 @@ def serving_phase(args, dev, adj, kd, kh, kl, path_counts):
         torch.cuda.reset_peak_host_memory_stats()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    reset_counts(kd, kh, kl)
+    reset_counts()
     t0 = time.perf_counter()
     futs, shed = submit_all(pool)
     if not pool.warm_wait(SERVE_TIMEOUT):
@@ -859,7 +861,7 @@ def serving_phase(args, dev, adj, kd, kh, kl, path_counts):
         f.result(SERVE_TIMEOUT)
     torch.cuda.synchronize()
     burst_s = time.perf_counter() - t0
-    launched = read_counts(kd, kh, kl)
+    launched = read_counts()
     path_counts["serving"] = launched
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     pinned = ({k: v for k, v in torch.cuda.host_memory_stats().items()
@@ -1091,7 +1093,7 @@ def sharded_phase(args, device, kd, kh, kl, mats, results, call_counts,
     n = args.shards
     devs = [device] * n
     topo = topology_key(devs)
-    total = {k: 0 for k in read_counts(kd, kh, kl)}
+    total = {k: 0 for k in read_counts()}
     out = {"shards": n, "topology": topo, "calls": {}}
     splans = {}
 
@@ -1101,7 +1103,7 @@ def sharded_phase(args, device, kd, kh, kl, mats, results, call_counts,
         """``fn()`` with every count set to 0 just before and read just
         after (the launches are added to the phase's path), its wall and
         its peak device memory (appended to ``peaks``)."""
-        reset_counts(kd, kh, kl)
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1109,7 +1111,7 @@ def sharded_phase(args, device, kd, kh, kl, mats, results, call_counts,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
-        got = read_counts(kd, kh, kl)
+        got = read_counts()
         for k, v in got.items():
             total[k] += v
         return res, wall, got
@@ -1675,11 +1677,11 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
                                         sampled.capacity_factor)
     torch.cuda.synchronize()
     tuned_before = len(tuning.DEFAULT_TUNING_CACHE)
-    reset_counts(kd, kh, kl)
+    reset_counts()
     c1, rep1, c2, rep2, service, d, dt = moe_dispatch.co_routing(logits, 8,
                                                                  dev)
     torch.cuda.synchronize()
-    launched = path_counts["lm"] = read_counts(kd, kh, kl)
+    launched = path_counts["lm"] = read_counts()
     if not rep2.plan_cache_hit or rep1.plan_cache_hit:
         raise AssertionError("MoE demo: the second multiply missed the "
                              "plan cache")
@@ -2750,7 +2752,7 @@ def mesh_calls(out, shard, kd, kh, kl, mats, results, served) -> dict:
     from repro_torch import serving
     from repro_torch.core import planner, workflow
     devs = out["shard_mesh"]
-    reset_counts(kd, kh, kl)
+    reset_counts()
     for name, a in mats[:2]:
         t0 = time.perf_counter()
         c, rep = workflow.ocean_spgemm(a, a, cache=planner.PlanCache(),
@@ -2774,7 +2776,7 @@ def mesh_calls(out, shard, kd, kh, kl, mats, results, served) -> dict:
     log(f"SpGEMMService(devices=make_shard_mesh()) {sname} @ B: C "
         "bit-identical to phase 2d's serial uncached call")
     del c, svc
-    launched = read_counts(kd, kh, kl)
+    launched = read_counts()
     if not launched["dense_window"]:
         raise AssertionError(f"mesh path: launches {launched}")
     log(f"mesh path launches {json.dumps(launched)}")
@@ -2967,9 +2969,9 @@ def main() -> int:
         cache = planner.PlanCache()
         caches[name] = cache
         outs = []
-        reset_counts(kd, kh, kl)
+        reset_counts()
         for call in ("cold", "warm"):
-            before = read_counts(kd, kh, kl)
+            before = read_counts()
             tracer = trace.Tracer()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
@@ -2979,7 +2981,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched = {k: v - before[k]
-                        for k, v in read_counts(kd, kh, kl).items()}
+                        for k, v in read_counts().items()}
             spans = {}
             for ev in tracer.events():
                 spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"]
@@ -2988,7 +2990,7 @@ def main() -> int:
                      torch.cuda.max_memory_allocated() / 2**30)
             log(f"  spans {json.dumps({k: round(v, 4) for k, v in spans.items()})}")
             outs.append((c, rep, wall))
-        path_counts[name] = read_counts(kd, kh, kl)
+        path_counts[name] = read_counts()
         log(f"{name}: launches on its path (cold + warm) "
             f"{json.dumps(path_counts[name])}")
         return outs
@@ -3094,11 +3096,11 @@ def main() -> int:
     adj_t = gen_rmat(gs)
     low = graph.lower_triangle(adj_t)
     tri_cache = planner.PlanCache()
-    reset_counts(kd, kh, kl)
+    reset_counts()
     tris = []
     tri_count_launches = {}
     for call in ("cold", "warm"):
-        before = read_counts(kd, kh, kl)
+        before = read_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3106,7 +3108,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {k: v - before[k]
-                    for k, v in read_counts(kd, kh, kl).items()}
+                    for k, v in read_counts().items()}
         tri_count_launches[call] = launched["count"]
         if launched["hll_merge"] != merges_wanted(rep):
             raise AssertionError(f"triangles {call}: hll_merge launches "
@@ -3116,7 +3118,7 @@ def main() -> int:
                  torch.cuda.max_memory_allocated() / 2**30)
         log(f"  triangles {tri}")
         tris.append(tri)
-    path_counts["triangles"] = read_counts(kd, kh, kl)
+    path_counts["triangles"] = read_counts()
     if tri_count_launches != {"cold": 1, "warm": 0}:
         raise AssertionError(f"triangles: count launches "
                              f"{tri_count_launches}, want cold 1, warm 0")
@@ -3136,10 +3138,10 @@ def main() -> int:
             self.steps = []
 
         def step(self, c, **kw):
-            before = read_counts(kd, kh, kl)
+            before = read_counts()
             out, rep = super().step(c, **kw)
             launched = {k: v - before[k]
-                        for k, v in read_counts(kd, kh, kl).items()}
+                        for k, v in read_counts().items()}
             self.steps.append((c, out, rep, launched))
             return out, rep
 
@@ -3150,14 +3152,14 @@ def main() -> int:
     log(f"k-hop: structure_hash of the RHS (the chain's sketch-cache key, "
         f"host copy of the pattern) {time.perf_counter() - t0:.3f} s")
     seeds = [0, 1, 2]
-    reset_counts(kd, kh, kl)
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runner = runner_k = RecordingRunner(adj_k)
     fronts, kres = graph.k_hop_frontier(adj_k, seeds, 3, runner=runner)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    path_counts["k-hop"] = read_counts(kd, kh, kl)
+    path_counts["k-hop"] = read_counts()
     log(f"k-hop: wall {wall:.3f} s for 3 hops, launches "
         f"{json.dumps(path_counts['k-hop'])}")
     a_k = to_scipy(adj_k)
@@ -3188,13 +3190,13 @@ def main() -> int:
     adj_m = gen_rmat(gs - 4)
 
     runner = RecordingRunner(None)
-    reset_counts(kd, kh, kl)
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mcl = graph.markov_cluster(adj_m, iterations=4, runner=runner)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    path_counts["MCL"] = read_counts(kd, kh, kl)
+    path_counts["MCL"] = read_counts()
     log(f"MCL: wall {wall:.3f} s for {len(runner.steps)} iterations, "
         f"launches {json.dumps(path_counts['MCL'])}, clusters "
         f"{len(np.unique(mcl.labels))}")
@@ -3318,7 +3320,7 @@ def main() -> int:
     dryrun_line = dryrun_phase(args, torch.device("cuda", 0), kd, kh, kl,
                                mats, results, served, path_counts, smi)
     counts = {k: sum(pc[k] for pc in path_counts.values())
-              for k in read_counts(kd, kh, kl)}
+              for k in read_counts()}
     by_path = {k: {p: pc[k] for p, pc in path_counts.items()}
                for k in counts}
     log(f"launches on every path: {json.dumps(counts)}")

@@ -107,12 +107,15 @@ class Launch:
     ``tag`` is caller-owned identity; ``order`` is the dispatch order;
     ``arrays`` the device tensors; ``host`` their host copies once
     :func:`start_async_host_copies` ran, and ``event`` the CUDA event
-    behind the launch's work and copies (``None`` for CPU tensors)."""
+    behind the launch's work and copies (``None`` for CPU tensors).
+    ``timing``: the ``trace.DeviceTimer`` around the launch's device work
+    while tracing (``None`` otherwise)."""
     tag: object
     order: int
     arrays: Tuple
     host: Optional[Tuple] = None
     event: Optional[object] = None
+    timing: Optional[object] = None
 
 
 def device_context(device):

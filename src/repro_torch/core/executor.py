@@ -202,11 +202,10 @@ def _run_esc_bin(ex: EscExec, a_values: torch.Tensor, b_arrays,
         b_values, num_rows_a=ex.sub_indptr.shape[0] - 1, n_cols_b=n_cols)
 
 
-def _compact_slabs(slabs: List[_Slab], shape: Tuple[int, int],
-                   dtype: torch.dtype, device) -> Tuple[CSR, int]:
-    """Scatter row-disjoint slabs into one CSR on ``device``."""
+def _scatter_slabs(slabs: List[_Slab], m: int, dtype: torch.dtype
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Row-disjoint slabs scattered into one CSR's host arrays."""
     dtype = torch.empty((), dtype=dtype).numpy().dtype
-    m = shape[0]
     counts = np.zeros(m, np.int64)
     for s in slabs:
         counts[s.rows] = s.nnz
@@ -224,8 +223,19 @@ def _compact_slabs(slabs: List[_Slab], shape: Tuple[int, int],
         pos = indptr[s.rows][:, None] + slot
         out_cols[pos[valid]] = s.cols[valid]
         out_vals[pos[valid]] = s.vals[valid]
-    return csr_from_arrays(indptr, out_cols, out_vals, shape,
-                           device=device), total
+    return indptr, out_cols, out_vals
+
+
+def _compact_slabs(state: "_MergeState", shape: Tuple[int, int],
+                   dtype: torch.dtype, device) -> Tuple[CSR, int]:
+    """The merge state's slabs as one CSR on ``device``: the host scatter,
+    then the upload, each timed into the state's ``span_seconds``."""
+    with trace.timed("exec.compact.scatter", state.span_seconds):
+        indptr, cols, vals = _scatter_slabs(state.finalize(), shape[0],
+                                            dtype)
+    with trace.timed("exec.compact.upload", state.span_seconds):
+        c = csr_from_arrays(indptr, cols, vals, shape, device=device)
+    return c, int(indptr[-1])
 
 
 @dataclasses.dataclass
@@ -249,7 +259,8 @@ def _dispatch(shards: List[_ShardWork], a_values: torch.Tensor,
     async copies of its results. B is padded once on its device and moved
     to each shard's (``.to`` is a no-op on the same device). Tags are
     ``(kind, exec)``; ESC launches carry their exact nnz as a third tag
-    field."""
+    field. While tracing, each launch's ``timing`` brackets its gather,
+    kernel and epilogue on the device, and none of its copies."""
     items: List[Launch] = []
     order = 0
     with device_context(b.device):
@@ -261,22 +272,50 @@ def _dispatch(shards: List[_ShardWork], a_values: torch.Tensor,
         with device_context(dev):
             b_cols_pad, b_vals_pad = (x.to(dev) for x in b_pad)
             for be in shard.dense:
+                timer = trace.device_timer(dev)
                 arrays = _run_dense_bin(be, a_values, b_cols_pad, b_vals_pad)
-                items.append(Launch(("dense", be), order, tuple(arrays)))
+                items.append(Launch(("dense", be), order, tuple(arrays),
+                                    timing=timer and timer.stop()))
                 order += 1
             for hb in shard.hash:
+                timer = trace.device_timer(dev)
                 arrays = _run_hash_bin(hb, a_values, b_cols_pad, b_vals_pad)
-                items.append(Launch(("hash", hb), order, tuple(arrays)))
+                items.append(Launch(("hash", hb), order, tuple(arrays),
+                                    timing=timer and timer.stop()))
                 order += 1
             if shard.esc is not None:
                 b_esc = tuple(x.to(dev) for x in (b.indptr, b.indices,
                                                   b.values))
+                timer = trace.device_timer(dev)
                 res = _run_esc_bin(shard.esc, a_values, b_esc, b.n)
                 items.append(Launch(("esc", shard.esc, res.nnz), order,
-                                    (res.indptr, res.indices, res.values)))
+                                    (res.indptr, res.indices, res.values),
+                                    timing=timer and timer.stop()))
                 order += 1
     start_async_host_copies(items)
     return items
+
+
+def _rung(kind: str, exec_) -> str:
+    """A bin's name as ``plan.bins_describe`` gives it."""
+    if kind == "dense":
+        return f"dense_w{exec_.window}x{exec_.col_tiles}"
+    return f"hash_t{exec_.table}" if kind == "hash" else "esc"
+
+
+def _record_device_spans(items: List[Launch]) -> Dict[str, float]:
+    """Each materialised launch's device span (``device.bin``) on the
+    tracer's device lane; the device seconds by kind."""
+    out: Dict[str, float] = {}
+    for it in items:
+        if it.timing is None:
+            continue
+        kind, exec_ = it.tag[:2]
+        dt = it.timing.record("device.bin", kind=kind,
+                              rung=_rung(kind, exec_), rows=exec_.n_valid,
+                              order=it.order)
+        out[kind] = out.get(kind, 0.0) + dt
+    return out
 
 
 def _materialize(it: Launch) -> _Slab:
@@ -303,7 +342,8 @@ class _MergeState:
     counting half of compaction, fed one slab at a time (add-order
     independent)."""
 
-    def __init__(self, m_rows: int, post: Optional[MergePostOps] = None):
+    def __init__(self, m_rows: int, post: Optional[MergePostOps] = None,
+                 span_seconds: Optional[Dict[str, float]] = None):
         self.kept: List[Tuple[int, _Slab]] = []
         self.overflow: Dict[int, np.ndarray] = {}
         # which bin family's capacity the overflowed rows broke
@@ -314,6 +354,10 @@ class _MergeState:
         # chains feed forward; only kept when post-ops may filter it
         self.raw_counts = (np.zeros(m_rows, np.int64)
                            if post is not None else None)
+        # seconds of the multiply's timed steps, by span name (the plan
+        # lookup's, timed before, are already in a caller's dict)
+        self.span_seconds: Dict[str, float] = (
+            {} if span_seconds is None else span_seconds)
 
     def _admit(self, order: int, slab: _Slab) -> None:
         if self.post is not None:
@@ -390,20 +434,25 @@ class _MergeState:
 
 def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
                            a: CSR, b: CSR) -> int:
-    """Re-run overflowed rows through the exact ESC pass (paper §3.2)."""
+    """Re-run overflowed rows through the exact ESC pass (paper §3.2):
+    gather, ESC on A's device, copy back, slab; each step timed."""
     rows = state.fallback_rows()
     if rows is None:
         return 0
-    with trace.span("exec.overflow_fallback") as sp:
-        sub = gather_rows(a, rows)
-        res = esc_mod.esc_spgemm(
-            sub.indptr, sub.indices, sub.values, b.indptr, b.indices,
-            b.values, num_rows_a=sub.m, n_cols_b=b.n)
-        p_cap = int(products[rows].sum())
-        host = [x.cpu().numpy() for x in (res.indptr, res.indices,
-                                          res.values)]
-        state.add_fallback(_esc_to_slab(*host, res.nnz, rows, p_cap))
-        sp.set(rows=len(rows))
+    secs = state.span_seconds
+    with trace.timed("exec.overflow_fallback", secs, rows=len(rows)):
+        with trace.timed("exec.fallback.gather", secs):
+            sub = gather_rows(a, rows)
+        with trace.timed("exec.fallback.esc", secs):
+            res = esc_mod.esc_spgemm(
+                sub.indptr, sub.indices, sub.values, b.indptr, b.indices,
+                b.values, num_rows_a=sub.m, n_cols_b=b.n)
+        with trace.timed("exec.fallback.copyback", secs):
+            host = [x.cpu().numpy() for x in (res.indptr, res.indices,
+                                              res.values)]
+        with trace.timed("exec.fallback.slab", secs):
+            p_cap = int(products[rows].sum())
+            state.add_fallback(_esc_to_slab(*host, res.nnz, rows, p_cap))
     return len(rows)
 
 
@@ -412,33 +461,29 @@ def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def _collect_serial(items, plan, a, b, stage, dispatch_s, state):
-    """One global barrier, then merge (stage keys numeric/overflow/
-    postprocess)."""
+    """One global barrier, then merge every slab."""
     t0 = time.perf_counter()
     slabs = [(it, _materialize(it)) for it in items]
-    stage["numeric"] = dispatch_s + (time.perf_counter() - t0)
-    trace.add_span("exec.collect", t0, time.perf_counter() - t0)
+    collect_s = time.perf_counter() - t0
+    trace.add_span("exec.collect", t0, collect_s)
     t0 = time.perf_counter()
     for it, slab in slabs:
         state.add(it, slab)
-    n_overflow = _run_overflow_fallback(state, plan.products, a, b)
-    stage["overflow"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    c, total = _compact_slabs(state.finalize(), (a.m, b.n), a.values.dtype,
-                              a.device)
-    stage["postprocess"] = time.perf_counter() - t0
-    trace.add_span("exec.compact", t0, stage["postprocess"])
+    merge_s = time.perf_counter() - t0
+    c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
+                                         dispatch_s, collect_s, merge_s)
     return c, total, n_overflow, 0.0
 
 
 def _finish_merge(state, plan, a, b, stage, dispatch_s, collect_s, merge_s):
+    """The merge's tail, after every slab was added: the overflow fallback
+    and the compaction (stage keys dispatch, collect, merge)."""
     t0 = time.perf_counter()
     n_overflow = _run_overflow_fallback(state, plan.products, a, b)
-    t1 = time.perf_counter()
-    c, total = _compact_slabs(state.finalize(), (a.m, b.n), a.values.dtype,
-                              a.device)
+    with trace.timed("exec.compact", state.span_seconds):
+        c, total = _compact_slabs(state, (a.m, b.n), a.values.dtype,
+                                  a.device)
     t2 = time.perf_counter()
-    trace.add_span("exec.compact", t1, t2 - t1)
     stage["dispatch"] = dispatch_s
     stage["collect"] = collect_s
     stage["merge"] = merge_s + (t2 - t0)
@@ -521,9 +566,11 @@ def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
     if errors:
         raise errors[0]
     if traced and worker_tid:
+        mid = trace.current_mid()
         for w0, wdt in spans:
             trace.add_span("exec.merge_worker", w0, wdt,
-                           tid=worker_tid[0], thread="ocean-merge-worker")
+                           tid=worker_tid[0], thread="ocean-merge-worker",
+                           mid=mid)
     merge_s = sum(dt for _, dt in spans)
     overlap_s = sum(min(max(collect_end - t0, 0.0), dt) for t0, dt in spans)
     c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
@@ -538,9 +585,12 @@ _COLLECT_OF = {PIPELINED: _collect_pipelined, THREADED: _collect_threaded,
 def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
              *, stage: Optional[Dict[str, float]], cache_hit: bool,
              executor: str, n_shards: int, shard_imbalance: float,
-             post: Optional[MergePostOps]) -> Tuple[CSR, OceanReport]:
+             post: Optional[MergePostOps],
+             span_seconds: Optional[Dict[str, float]]
+             ) -> Tuple[CSR, OceanReport]:
     """The pipeline behind :func:`execute_plan` and
-    :func:`execute_sharded_plan`."""
+    :func:`execute_sharded_plan`; ``span_seconds`` (the report's, which
+    may hold the plan lookup's steps) collects the merge's timed steps."""
     if executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r}; expected one of "
                          f"{EXECUTORS}")
@@ -561,9 +611,10 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
     dispatch_s = time.perf_counter() - t0
     trace.add_span("exec.dispatch", t0, dispatch_s, launches=len(items))
 
-    state = _MergeState(a.m, post)
+    state = _MergeState(a.m, post, span_seconds)
     c, total, n_overflow, overlap_s = _COLLECT_OF[executor](
         items, plan, a, b, stage, dispatch_s, state)
+    device_s = _record_device_spans(items) if trace.enabled() else None
     overlap_s = min(max(overlap_s, 0.0), stage.get("merge", 0.0))
     causes = state.overflow_causes
 
@@ -588,7 +639,8 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
         raw_row_nnz=state.raw_counts,
         wave2_overlap_seconds=plan.wave2_overlap_seconds,
         wave2_overlapped=plan.wave2_overlapped,
-        estimation_accuracy=accuracy, decision=plan.decision)
+        estimation_accuracy=accuracy, decision=plan.decision,
+        span_seconds=state.span_seconds, device_seconds=device_s)
     return c, report
 
 
@@ -597,6 +649,7 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
                  cache_hit: bool = False,
                  executor: str = PIPELINED,
                  post: Optional[MergePostOps] = None,
+                 span_seconds: Optional[Dict[str, float]] = None,
                  ) -> Tuple[CSR, OceanReport]:
     """Run a frozen plan against (possibly new) values of A and B.
 
@@ -605,7 +658,8 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
     calls alike."""
     return _execute(plan, _shards_of_plan(plan), a, b, stage=stage,
                     cache_hit=cache_hit, executor=executor, n_shards=1,
-                    shard_imbalance=1.0, post=post)
+                    shard_imbalance=1.0, post=post,
+                    span_seconds=span_seconds)
 
 
 def execute_sharded_plan(splan, a: CSR, b: CSR, *,
@@ -613,6 +667,7 @@ def execute_sharded_plan(splan, a: CSR, b: CSR, *,
                          cache_hit: bool = False,
                          executor: str = PIPELINED,
                          post: Optional[MergePostOps] = None,
+                         span_seconds: Optional[Dict[str, float]] = None,
                          ) -> Tuple[CSR, OceanReport]:
     """Run a :class:`~repro_torch.core.partition.ShardedPlan` across its
     devices: each shard's bins launch on its device, and the slabs merge
@@ -627,4 +682,5 @@ def execute_sharded_plan(splan, a: CSR, b: CSR, *,
     return _execute(splan.plan, shards, a, b, stage=stage,
                     cache_hit=cache_hit, executor=executor,
                     n_shards=splan.n_shards,
-                    shard_imbalance=splan.imbalance, post=post)
+                    shard_imbalance=splan.imbalance, post=post,
+                    span_seconds=span_seconds)

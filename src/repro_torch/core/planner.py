@@ -61,6 +61,12 @@ class OceanReport:
     estimation_accuracy: Optional[object] = None
     # workflow-decision audit record captured at plan-build time
     decision: Optional[Dict] = None
+    # seconds of the timed steps (``trace.SUB_SPANS`` and their parents),
+    # by span name, summed within the multiply; apart from stage_seconds
+    span_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # device seconds of the bin launches by kind (dense, hash, esc); only
+    # measured while tracing is on
+    device_seconds: Optional[Dict[str, float]] = None
 
     @property
     def total_seconds(self) -> float:
@@ -108,6 +114,12 @@ class OceanReport:
         if self.setup_seconds > self.total_seconds * (1.0 + 1e-9):
             bad.append(f"setup_seconds {self.setup_seconds} exceeds "
                        f"total_seconds {self.total_seconds}")
+        for parent, children in trace.SUB_SPANS.items():
+            inner = sum(self.span_seconds.get(c, 0.0) for c in children)
+            outer = self.span_seconds.get(parent, 0.0)
+            if inner > outer * (1.0 + 1e-9):
+                bad.append(f"span_seconds of {children} sum to {inner}, "
+                           f"over their parent {parent!r}'s {outer}")
         return bad
 
 
@@ -489,24 +501,28 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
                  stage: Optional[Dict[str, float]] = None,
                  cache_hit: bool = False,
                  executor: str = "pipelined",
-                 post=None) -> Tuple[CSR, OceanReport]:
+                 post=None,
+                 span_seconds: Optional[Dict[str, float]] = None,
+                 ) -> Tuple[CSR, OceanReport]:
     """Run a frozen plan against (possibly new) values of A and B, with
     optional fused ``post`` (``executor.MergePostOps``)."""
     from .executor import execute_plan as _execute
     return _execute(plan, a, b, stage=stage, cache_hit=cache_hit,
-                    executor=executor, post=post)
+                    executor=executor, post=post, span_seconds=span_seconds)
 
 
 def execute_sharded_plan(splan, a: CSR, b: CSR, *,
                          stage: Optional[Dict[str, float]] = None,
                          cache_hit: bool = False,
                          executor: str = "pipelined",
-                         post=None) -> Tuple[CSR, OceanReport]:
+                         post=None,
+                         span_seconds: Optional[Dict[str, float]] = None,
+                         ) -> Tuple[CSR, OceanReport]:
     """Run a :class:`~repro_torch.core.partition.ShardedPlan` across its
     devices through the same executor pipeline."""
     from .executor import execute_sharded_plan as _execute
     return _execute(splan, a, b, stage=stage, cache_hit=cache_hit,
-                    executor=executor, post=post)
+                    executor=executor, post=post, span_seconds=span_seconds)
 
 
 # ---------------------------------------------------------------------------

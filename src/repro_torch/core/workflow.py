@@ -16,6 +16,7 @@ versions on the CPU), or with ``devices=`` across a device set
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -68,6 +69,20 @@ def _partition(plan: ExecutionPlan, devs, stage: Dict[str, float]):
     return splan
 
 
+def _root_spanned(multiply):
+    """``multiply`` as one root span, ``ocean.spgemm``, whose attrs take
+    the report's cache hit and workflow."""
+    @functools.wraps(multiply)
+    def call(*args, **kwargs):
+        with trace.root_span() as root:
+            c, report = multiply(*args, **kwargs)
+            root.set(cache_hit=report.plan_cache_hit,
+                     workflow=report.workflow)
+        return c, report
+    return call
+
+
+@_root_spanned
 def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
                  force_workflow: Optional[str] = None,
                  assisted: bool = True, hybrid: bool = True,
@@ -104,6 +119,10 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     plan. With ``plan=ExecutionPlan`` it partitions on every call; pass a
     ``ShardedPlan`` to reuse one. ``analysis_devices`` shards the analysis
     stage (default: ``devices``); it changes no result and no cache key.
+
+    The call is one root span, ``ocean.spgemm``: while tracing, every span
+    it records carries its multiply id (``trace.root_span``). The plan
+    lookup's steps are timed into ``OceanReport.span_seconds``.
     """
     _check_same_device(a, b)
     if plan is not None:
@@ -127,20 +146,22 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     devs, an_devs = _device_sets(devices, analysis_devices)
     cache_obj = _resolve_cache(cache) if analysis is None else None
     if cache_obj is not None:
-        t0 = time.perf_counter()
-        key = structure_key(a, b, cfg, force_workflow, assisted, hybrid,
-                            known_sizes=known_sizes)
-        lkey = key if devs is None else key + "|" + topology_key(devs)
-        cached = cache_obj.lookup(lkey)
-        lookup_s = time.perf_counter() - t0
-        trace.add_span("plan.lookup", t0, lookup_s,
-                       hit=bool(cached is not None))
+        spans: Dict[str, float] = {}
+        with trace.timed("plan.lookup", spans) as lookup:
+            with trace.timed("plan.key", spans):
+                key = structure_key(a, b, cfg, force_workflow, assisted,
+                                    hybrid, known_sizes=known_sizes)
+            lkey = key if devs is None else key + "|" + topology_key(devs)
+            with trace.timed("plan.probe", spans):
+                cached = cache_obj.lookup(lkey)
+            lookup.set(hit=cached is not None)
+        lookup_s = lookup.seconds
         if cached is not None:
             stage = {"plan_lookup": lookup_s, "analysis": 0.0,
                      "prediction": 0.0, "binning": 0.0}
             run = execute_plan if devs is None else execute_sharded_plan
             return run(cached, a, b, stage=stage, cache_hit=True,
-                       executor=executor, post=post)
+                       executor=executor, post=post, span_seconds=spans)
         # a sharded miss re-uses a cached base plan of the structure (peek:
         # the lookup above already counted the miss)
         base = cache_obj.peek(key) if devs is not None else None
@@ -157,11 +178,12 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         stage["plan_lookup"] = lookup_s
         if devs is None:
             return execute_plan(base, a, b, stage=stage, executor=executor,
-                                post=post)
+                                post=post, span_seconds=spans)
         splan = _partition(base, devs, stage)
         cache_obj.insert(lkey, splan)
         return execute_sharded_plan(splan, a, b, stage=stage,
-                                    executor=executor, post=post)
+                                    executor=executor, post=post,
+                                    span_seconds=spans)
     fresh = build_plan(a, b, cfg, force_workflow=force_workflow,
                        assisted=assisted, hybrid=hybrid, analysis=analysis,
                        sketch_cache=sketch_cache, analysis_devices=an_devs,

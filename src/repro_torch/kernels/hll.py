@@ -27,6 +27,7 @@ import functools
 import torch
 
 from ..core import hll as chll
+from ..obs.metrics import count_launch
 from . import _build
 
 # Column ids a thread of the sketch kernel loads at once (two 16-byte loads):
@@ -114,8 +115,8 @@ def hll_sketch(indptr, indices, *, m_regs: int, seed: int = 0, out=None):
     The ids are ``indices[indptr[r]: indptr[r + 1]]``; ``indices`` holds at
     least ``indptr[R]`` of them, and its length sizes the sketch kernel's
     launch, so pass the valid ids, not a padded capacity. On the card one
-    launch (one count in ``hll_sketch.launches``) is two kernels: the
-    chunks' bounds, then the sketch."""
+    launch (one count in ``kernel.launches{kernel=hll_sketch}``) is two
+    kernels: the chunks' bounds, then the sketch."""
     _check_m(m_regs, indptr.device.type == "cuda")
     r = indptr.shape[0] - 1
     if out is not None and (out.shape != (r, m_regs)
@@ -143,11 +144,8 @@ def hll_sketch(indptr, indices, *, m_regs: int, seed: int = 0, out=None):
     _build.launch("ocean_hll_sketch", dev, indptr.data_ptr(),
                   indices.data_ptr(), regs.data_ptr(), bounds.data_ptr(), r,
                   n_ids, chunks, m_regs, seed & 0xFFFFFFFF, threads)
-    hll_sketch.launches += 1
+    count_launch("hll_sketch")
     return out if regs is out else out.copy_(regs)
-
-
-hll_sketch.launches = 0  # launch count of the CUDA kernel
 
 
 def hll_merge_plain(a_indptr, a_indices, sketches_with_sentinel):
@@ -191,8 +189,5 @@ def hll_merge(a_indptr, a_indices, sketches_with_sentinel):
         "ocean_hll_merge", dev, a_indptr.data_ptr(), a_indices.data_ptr(),
         sk.data_ptr(), merged.data_ptr(), est.data_ptr(), ra, nb1, m,
         chll._alpha(m) * m * m)
-    hll_merge.launches += 1
+    count_launch("hll_merge")
     return merged, est
-
-
-hll_merge.launches = 0  # launch count of the CUDA kernel

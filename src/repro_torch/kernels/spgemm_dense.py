@@ -30,6 +30,7 @@ import torch
 
 from ..core.esc import segment_sum
 from ..core.formats import PAD_COL
+from ..obs.metrics import count_launch
 from . import _build
 
 _INT_INPUTS = ("a_rows", "a_starts", "a_lens", "row_lo", "b_cols")
@@ -245,16 +246,8 @@ def spgemm_dense_slab(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols,
         a_starts.data_ptr(), a_lens.data_ptr(), row_lo.data_ptr(),
         b_cols.data_ptr(), b_vals.data_ptr(), cols.data_ptr(),
         vals.data_ptr(), nnz.data_ptr(), r, e, window, col_tiles, cap)
-    if col_tiles > 1:
-        spgemm_dense_slab.longrow_launches += 1
-    else:
-        spgemm_dense_slab.window_launches += 1
+    count_launch("dense_longrow" if col_tiles > 1 else "dense_window")
     return cols, vals, nnz
-
-
-# launch counts of the CUDA kernel, split by rung (windowed / long-row)
-spgemm_dense_slab.window_launches = 0
-spgemm_dense_slab.longrow_launches = 0
 
 
 def spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols, *,
@@ -287,11 +280,8 @@ def spgemm_count_bin(a_rows, a_starts, a_lens, row_lo, b_cols, *,
         a_lens.data_ptr(), row_lo.data_ptr(), b_cols.data_ptr(),
         None if counts is None else counts.data_ptr(), row_nnz.data_ptr(),
         r, e, window, col_tiles)
-    spgemm_count_bin.launches += 1
+    count_launch("count_bin")
     return counts, row_nnz
-
-
-spgemm_count_bin.launches = 0  # launch count of the CUDA kernel
 
 
 def count_rows_plain(a_indptr, a_indices, b_indptr, b_indices, rows, row_lo,
@@ -445,8 +435,5 @@ def spgemm_count_rows(a_indptr, a_indices, b_indptr, b_indices, rows, row_lo,
         b_indptr.data_ptr(), b_indices.data_ptr(), rows.data_ptr(),
         row_lo.data_ptr(), out.data_ptr(), r, b_indptr.shape[0] - 1, heavy,
         warps)
-    spgemm_count_rows.launches += 1
+    count_launch("count_rows")
     return out
-
-
-spgemm_count_rows.launches = 0  # launch count of the CUDA kernel

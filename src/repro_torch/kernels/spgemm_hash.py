@@ -26,6 +26,7 @@ import torch
 
 from ..core.esc import segment_sum
 from ..core.formats import PAD_COL
+from ..obs.metrics import count_launch
 from . import _build
 from .spgemm_dense import _check_inputs, enumerate_products, row_chunks
 
@@ -149,7 +150,7 @@ def hash_slab(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
         a_starts.data_ptr(), a_lens.data_ptr(), b_cols.data_ptr(),
         b_vals.data_ptr(), scratch.data_ptr(), cols.data_ptr(),
         vals.data_ptr(), nnz.data_ptr(), r, e, table, spill, lanes, rows)
-    spgemm_hash_bin.launches += 1
+    count_launch("hash")
     return cols, vals, nnz
 
 
@@ -172,6 +173,3 @@ def spgemm_hash_bin(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals, *,
                               b_vals, table=table, spill=spill)
     return hash_slab(a_rows, a_vals, a_starts, a_lens, b_cols, b_vals,
                      table=table, spill=spill)
-
-
-spgemm_hash_bin.launches = 0  # launch count of the CUDA kernel

@@ -2,7 +2,8 @@
 
 One :class:`MetricsRegistry` holds every series a component emits, keyed
 by ``(name, sorted labels)``. A copy of ``repro.obs.metrics``; the port's
-accuracy telemetry counts into it when a registry is installed.
+accuracy telemetry and its kernel wrappers (``kernel.launches{kernel}``,
+:func:`count_launch`) count into it when a registry is installed.
 
 Aggregation across workers is first-class: :meth:`MetricsRegistry.merge`
 folds another registry in (counters sum, gauges follow their declared
@@ -20,7 +21,11 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "install_registry", "active_registry"]
+           "install_registry", "active_registry", "count_launch",
+           "launch_counts", "launched", "LAUNCHES"]
+
+# counter of the hand-written kernels' launches, labelled ``kernel``
+LAUNCHES = "kernel.launches"
 
 LabelKey = Tuple[Tuple[str, object], ...]
 
@@ -254,3 +259,29 @@ def install_registry(registry: Optional[MetricsRegistry]
 
 def active_registry() -> Optional[MetricsRegistry]:
     return _registry
+
+
+def count_launch(kernel: str) -> None:
+    """Count one launch of a hand-written kernel into
+    ``kernel.launches{kernel=...}`` of the installed registry, under its
+    lock (several threads launch); one global read when none is."""
+    r = _registry
+    if r is not None:
+        c = r.counter(LAUNCHES, kernel=kernel)
+        with r._lock:
+            c.value += 1
+
+
+def launch_counts(registry: Optional[MetricsRegistry] = None
+                  ) -> Dict[str, int]:
+    """``{kernel: launches}`` counted in ``registry`` (default: the
+    installed one; empty when none is)."""
+    r = _registry if registry is None else registry
+    return {} if r is None else r.labeled_values(LAUNCHES, "kernel")
+
+
+def launched(*kernels: str) -> int:
+    """Launches of ``kernels`` counted so far in the installed registry
+    (0 when none is)."""
+    counts = launch_counts()
+    return sum(counts.get(k, 0) for k in kernels)

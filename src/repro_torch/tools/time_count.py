@@ -19,8 +19,8 @@ synchronised, median of ``--runs`` after one warm-up call:
 - whole;
 - its count part: the same call with the products of every other row set
   to 0, so that the call counts the counted rows and nothing else; with the
-  count kernel's launches in one call (the wrappers' launch counters), their
-  summed CUDA-event time (events around each count call of
+  count kernel's launches in one call (``kernel.launches`` in the metrics
+  registry), their summed CUDA-event time (events around each count call of
   ``kernels.ops``) and, from torch.profiler, their device time (the device
   activities named after either kernel of ``spgemm_count.cu``), which
   leaves out the wrappers' Python and the gaps between launches;
@@ -33,8 +33,10 @@ function.
 
 It calls only functions that every version of the port since the graph
 path has had, and reads whichever count wrappers the checkout has, so the
-same file times an older checkout through ``PYTHONPATH``. The last line is
-one JSON object.
+same file times another checkout through ``PYTHONPATH``, as long as its
+wrappers count launches into the metrics registry
+(``obs.metrics.launched``); an older checkout is timed by its own copy of
+this file. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -109,9 +111,8 @@ def count_device_ms(fn, runs: int) -> float:
 
 
 def count_launches() -> int:
-    from repro_torch.kernels import spgemm_dense as kd
-    return sum(getattr(kd, name).launches for name in COUNT_WRAPPERS
-               if hasattr(kd, name))
+    from repro_torch.obs import metrics
+    return metrics.launched("count_bin", "count_rows")
 
 
 def host_ms(fn, runs: int):
@@ -204,6 +205,8 @@ def main() -> int:
     from repro_torch import graph
     from repro_torch.core import formats
     from repro_torch.graph import algorithms
+    from repro_torch.obs import metrics
+    metrics.install_registry(metrics.MetricsRegistry())
     n = 1 << args.log2_rows
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -21,8 +21,10 @@ CUDA events (median of ``--runs`` after one warm-up call):
 
 It also prints each bin's shape: rows, ELL width, cap, live slots and
 products per row. It calls only functions that every version of the port
-has had, so the same file times an older checkout through ``PYTHONPATH``.
-The last line is one JSON object.
+has had, so the same file times another checkout through ``PYTHONPATH``,
+as long as its wrappers count launches into the metrics registry
+(``obs.metrics.launched``); an older checkout is timed by its own copy of
+this file. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -50,10 +52,9 @@ def time_cuda(fn, runs: int) -> float:
     return float(np.median(times))
 
 
-def dense_launches(kd) -> int:
-    """Launches of the dense kernel so far, under either wrapper's name."""
-    fn = getattr(kd, "spgemm_dense_slab", None) or kd.spgemm_dense_bin
-    return fn.window_launches + fn.longrow_launches
+def dense_launches() -> int:
+    from repro_torch.obs import metrics
+    return metrics.launched("dense_window", "dense_longrow")
 
 
 def bin_shape(be) -> dict:
@@ -75,7 +76,6 @@ def bin_shape(be) -> dict:
 def time_bin(a, be, runs: int) -> dict:
     from repro_torch.core import planner
     from repro_torch.kernels import ops
-    from repro_torch.kernels import spgemm_dense as kd
     b_cols, b_vals = ops.pad_b_flat(a)
     a_vals = ops.gather_bin_values(a.values, be.pos, be.valid)
     args = (be.a_rows, a_vals, be.a_starts, be.a_lens, be.row_lo, b_cols,
@@ -84,10 +84,10 @@ def time_bin(a, be, runs: int) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before = dense_launches(kd)
+    before = dense_launches()
     cols, vals, nnz = ops.dense_bin_op(*args, **kw)
     torch.cuda.synchronize()
-    launches = dense_launches(kd) - before
+    launches = dense_launches() - before
     scratch = torch.cuda.max_memory_allocated() - base
     ms = time_cuda(lambda: ops.dense_bin_op(*args, **kw), runs)
 
@@ -118,6 +118,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("time_dense_bin: no CUDA device available")
     from repro_torch.core import formats, planner
+    from repro_torch.obs import metrics
+    metrics.install_registry(metrics.MetricsRegistry())
     n = 1 << args.log2_rows
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -24,11 +24,12 @@ times with CUDA events (median of ``--runs`` after one warm-up call):
   whose nnz is checked against the bin op's (rows that overflow their
   tables excepted: their nnz is a flag, not a count).
 
-It also prints each bin's shape: rows, ELL width, table and spill, products
-per row. It calls only functions that every version of the port since the
-graph path has had, so the same file times an older checkout through
-``PYTHONPATH``. The last line is one
-JSON object.
+It also prints each bin's shape: rows, ELL width, table and spill,
+products per row. It calls only functions that every version of the port
+since the graph path has had, so the same file times another checkout
+through ``PYTHONPATH``, as long as its wrappers count launches into the
+metrics registry (``obs.metrics.launched``); an older checkout is timed by
+its own copy of this file. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -98,7 +99,7 @@ def bin_shape(hb) -> dict:
 def time_bin(a, hb, runs: int) -> dict:
     from repro_torch.core import planner
     from repro_torch.kernels import ops
-    from repro_torch.kernels import spgemm_hash as kh
+    from repro_torch.obs.metrics import launched
     b_cols, b_vals = ops.pad_b_flat(a)
     a_vals = ops.gather_bin_values(a.values, hb.pos, hb.valid)
     args = (hb.a_rows, a_vals, hb.a_starts, hb.a_lens, b_cols, b_vals)
@@ -107,10 +108,10 @@ def time_bin(a, hb, runs: int) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before = kh.spgemm_hash_bin.launches
+    before = launched("hash")
     cols, vals, nnz = ops.hash_bin_op(*args, **kw)
     torch.cuda.synchronize()
-    launches = kh.spgemm_hash_bin.launches - before
+    launches = launched("hash") - before
     scratch = torch.cuda.max_memory_allocated() - base
     ms = time_cuda(lambda: ops.hash_bin_op(*args, **kw), runs)
     dev_ms = device_ms(lambda: ops.hash_bin_op(*args, **kw), runs)
@@ -152,6 +153,8 @@ def main() -> int:
         raise SystemExit("time_hash_bin: no CUDA device available")
     from repro_torch import graph
     from repro_torch.core import formats, planner
+    from repro_torch.obs import metrics
+    metrics.install_registry(metrics.MetricsRegistry())
     n = 1 << args.log2_rows
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -28,9 +28,11 @@ milliseconds a call):
   the host clock, synchronised: its ``analysis`` and ``prediction`` stages
   and the HLL launches one build makes.
 
-It calls only functions that every version of the port since the graph path
-has had, so the same file times an older checkout through ``PYTHONPATH``.
-The last line is one JSON object.
+It calls only functions that every version of the port since the graph
+path has had, so the same file times another checkout through
+``PYTHONPATH``, as long as its wrappers count launches into the metrics
+registry (``obs.metrics.launched``); an older checkout is timed by its
+own copy of this file. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -89,14 +91,15 @@ def device_ms(fn, runs: int, kernel: str):
     return sum(us for _, us in seen.values()) / 1e3 / runs, events
 
 
-def launches_per_call(fn, counter) -> int:
-    before = counter.launches
+def launches_per_call(fn, counter: str) -> int:
+    from repro_torch.obs.metrics import launched
+    before = launched(counter)
     fn()
     torch.cuda.synchronize()
-    return counter.launches - before
+    return launched(counter) - before
 
 
-def time_kernel(fn, counter, kernel: str, runs: int) -> dict:
+def time_kernel(fn, counter: str, kernel: str, runs: int) -> dict:
     dev_ms, events = device_ms(fn, runs, kernel)
     return {"launches": launches_per_call(fn, counter),
             "ms": time_cuda(fn, runs), "device_ms": dev_ms,
@@ -109,6 +112,7 @@ def time_product(name, x, y, runs: int) -> dict:
     from repro_torch.core.analysis import OceanConfig
     from repro_torch.kernels import hll as kl
     from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import launched
     cfg = OceanConfig()
     m = analysis.analyze(x, y, cfg).m_regs
     y_ids = y.indices[: y.nnz]
@@ -122,7 +126,7 @@ def time_product(name, x, y, runs: int) -> dict:
            "y_rows": y.m, "y_ids": y.nnz,
            "hll_sketch": time_kernel(
                lambda: kl.hll_sketch(y.indptr, y_ids, m_regs=m),
-               kl.hll_sketch, "hll_sketch", runs)}
+               "hll_sketch", "hll_sketch", runs)}
     rows = analysis._pick_sample_rows(x.m, cfg)
     for label, a in (("whole", x), ("sampled", planner.gather_rows(x, rows))):
         ids = a.indices[: a.nnz]
@@ -136,12 +140,12 @@ def time_product(name, x, y, runs: int) -> dict:
         del merged, est, pmerged, pest
         out[f"hll_merge_{label}"] = {
             "rows": a.m, "ids": a.nnz, **time_kernel(
-                lambda: kl.hll_merge(a.indptr, ids, sk), kl.hll_merge,
+                lambda: kl.hll_merge(a.indptr, ids, sk), "hll_merge",
                 "hll_merge_kernel", runs)}
     stages = {"analysis": [], "prediction": [], "wall": []}
     launches = set()
     for _ in range(runs + 1):
-        before = (kl.hll_sketch.launches, kl.hll_merge.launches)
+        before = (launched("hll_sketch"), launched("hll_merge"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plan = planner.build_plan(x, y, cfg)
@@ -149,8 +153,8 @@ def time_product(name, x, y, runs: int) -> dict:
         stages["wall"].append(time.perf_counter() - t0)
         for k in ("analysis", "prediction"):
             stages[k].append(plan.build_seconds[k])
-        launches.add((kl.hll_sketch.launches - before[0],
-                      kl.hll_merge.launches - before[1]))
+        launches.add((launched("hll_sketch") - before[0],
+                      launched("hll_merge") - before[1]))
     out["cold_plan"] = {
         "workflow": plan.workflow, "sampled_cr": plan.sampled_cr,
         "launches_sketch_merge": sorted(launches),
@@ -170,6 +174,8 @@ def main() -> int:
     from repro_torch import graph
     from repro_torch.core import formats
     from repro_torch.graph import algorithms
+    from repro_torch.obs import metrics
+    metrics.install_registry(metrics.MetricsRegistry())
     n = 1 << args.log2_rows
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

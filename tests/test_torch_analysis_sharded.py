@@ -255,13 +255,24 @@ def test_workflow_analysis_devices(suites):
 # Trace spans of a sharded call, as the reference's
 # ---------------------------------------------------------------------------
 
+# the port's spans that the reference does not record
+PORT_SPANS = {trace.ROOT}.union(*trace.SUB_SPANS.values())
+
+
 def lanes(tracer, exporter):
+    """Per recording thread's name, the multiset of (span name, parent
+    name), the port's own spans left out and a multiply root's children
+    parentless, as the reference records them."""
     doc = exporter.to_chrome_trace(tracer)
     exporter.validate_chrome_trace(json.dumps(doc))
     thread_of = {e["tid"]: e["thread"] for e in tracer.events()}
     out = collections.defaultdict(collections.Counter)
     for e in doc["traceEvents"]:
-        out[thread_of[e["tid"]]][e["name"], e["args"].get("parent")] += 1
+        if e.get("pid") != 0 or e["name"] in PORT_SPANS:
+            continue
+        parent = e["args"].get("parent")
+        out[thread_of[e["tid"]]][
+            e["name"], None if parent == trace.ROOT else parent] += 1
     return dict(out)
 
 

@@ -28,6 +28,7 @@ from repro_torch.core import analysis, formats, planner  # noqa: E402
 from repro_torch.core.binning import WINDOW_LADDER  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spgemm_dense as kdense  # noqa: E402
+from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 
 def _stats(a, b):
@@ -217,15 +218,14 @@ def test_count_rows_launch_shape_refuses_when_no_block_fits():
         kdense.count_rows_launch_shape(lambda warps: 0)
 
 
-def test_count_rows_cpu_launches_nothing_and_checks_inputs():
+def test_count_rows_cpu_launches_nothing_and_checks_inputs(launches):
     a, b, _ = _edge_matrices()
     rows = torch.tensor([0, 2], dtype=torch.int32)
     lo = torch.tensor([0, N_COLS - 3], dtype=torch.int32)
     out = torch.zeros(a.m, dtype=torch.int64)
-    before = kdense.spgemm_count_rows.launches
     kdense.spgemm_count_rows(a.indptr, a.indices, b.indptr, b.indices, rows,
                              lo, out, heavy=2)
-    assert kdense.spgemm_count_rows.launches == before
+    assert launches() == {}
     assert out.tolist()[:3] == [3, 0, 2]
     good = dict(a_indptr=a.indptr, a_indices=a.indices, b_indptr=b.indptr,
                 b_indices=b.indices, rows=rows, row_lo=lo)

@@ -23,6 +23,7 @@ from repro.core import formats as rformats  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spgemm_dense as kdense  # noqa: E402
+from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -93,11 +94,9 @@ def test_slab_plain_matches_reference_dense_bin_op(monkeypatch, numeric,
 
 @pytest.mark.parametrize("window,tiles,cap", [(256, 1, 64), (128, 3, 32)])
 def test_slab_wrapper_on_cpu_runs_plain_and_launches_nothing(window, tiles,
-                                                             cap):
+                                                             cap, launches):
     args = _t(*_slab_bin(3, 6, 8, window * tiles - 8, window=window,
                          offset=False))
-    before = (kdense.spgemm_dense_slab.window_launches,
-              kdense.spgemm_dense_slab.longrow_launches)
     got = kdense.spgemm_dense_slab(*args, window=window, col_tiles=tiles,
                                    cap=cap)
     want = ops.extract_window_rows(
@@ -105,8 +104,7 @@ def test_slab_wrapper_on_cpu_runs_plain_and_launches_nothing(window, tiles,
         args[4], cap=cap)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    assert before == (kdense.spgemm_dense_slab.window_launches,
-                      kdense.spgemm_dense_slab.longrow_launches)
+    assert launches() == {}
 
 
 @pytest.mark.parametrize("window,tiles,cap", [(256, 1, 32), (128, 2, 128)])

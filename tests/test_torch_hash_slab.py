@@ -28,6 +28,7 @@ from repro.core import binning  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import spgemm_hash as khash  # noqa: E402
+from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -249,7 +250,7 @@ def test_launch_shape_refuses_when_no_block_fits():
         khash.launch_shape(4096, 2048, lambda lanes, rows, smem: 0)
 
 
-def test_hash_slab_refuses_cpu_tensors(monkeypatch):
+def test_hash_slab_refuses_cpu_tensors(monkeypatch, launches):
     """The launcher raises on CPU tensors before it builds or launches
     anything."""
     def no_launch(*a, **kw):
@@ -258,18 +259,16 @@ def test_hash_slab_refuses_cpu_tensors(monkeypatch):
     monkeypatch.setattr(_build, "launch", no_launch)
     monkeypatch.setattr(_build, "library", no_launch)
     _, args = _case("spill")
-    before = khash.spgemm_hash_bin.launches
     with pytest.raises(ValueError, match="CUDA kernel"):
         khash.hash_slab(*_t(*args), table=32, spill=16)
-    assert khash.spgemm_hash_bin.launches == before
+    assert launches() == {}
 
 
-def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
+def test_wrapper_on_cpu_runs_plain_and_launches_nothing(launches):
     _, args = _case("overflow")
-    before = khash.spgemm_hash_bin.launches
     got = khash.spgemm_hash_bin(*_t(*args), table=32, spill=16, f_chunk=64,
                                 tile=2)
     want = khash.hash_bin_plain(*_t(*args), table=32, spill=16)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    assert khash.spgemm_hash_bin.launches == before
+    assert launches() == {}

@@ -27,6 +27,7 @@ from repro_torch.core import analysis, formats, planner  # noqa: E402
 from repro_torch.kernels import hll as khll  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import spgemm_dense as kdense  # noqa: E402
+from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 
 def _t(*xs):
@@ -72,11 +73,10 @@ def test_hll_sketch_plain_matches_pallas_and_oracles(m_regs):
             np.asarray(want))
 
 
-def test_hll_sketch_cpu_launches_nothing_and_checks_m():
+def test_hll_sketch_cpu_launches_nothing_and_checks_m(launches):
     ptr, idx = _ell_to_csr(_sketch_ell(1))
-    before = khll.hll_sketch.launches
     khll.hll_sketch(*_t(ptr, idx), m_regs=32)
-    assert khll.hll_sketch.launches == before
+    assert launches() == {}
     for bad in (0, 48, 256):
         with pytest.raises(ValueError, match="power of two"):
             khll.hll_sketch(*_t(ptr, idx), m_regs=bad)
@@ -113,7 +113,7 @@ def _count_bin(seed, r, e, n_b, n_cols):
 
 @pytest.mark.parametrize("window,tiles,offset", [
     (256, 1, True), (128, 1, False), (128, 3, False), (64, 4, True)])
-def test_count_plain_matches_pallas(window, tiles, offset):
+def test_count_plain_matches_pallas(window, tiles, offset, launches):
     n_cols = window * tiles + 100
     a_rows, a_starts, a_lens, b_cols = _count_bin(window + tiles, 6, 8, 40,
                                                   n_cols)
@@ -124,10 +124,9 @@ def test_count_plain_matches_pallas(window, tiles, offset):
     want = np.asarray(rkdense.spgemm_count_bin(
         *[jnp.asarray(x) for x in args], window=window, col_tiles=tiles,
         interpret=True))
-    before = kdense.spgemm_count_bin.launches
     counts, row_nnz = kdense.spgemm_count_bin(
         *_t(*args), window=window, col_tiles=tiles, want_counts=True)
-    assert kdense.spgemm_count_bin.launches == before
+    assert launches() == {}
     np.testing.assert_array_equal(counts.numpy(), want)
     np.testing.assert_array_equal(row_nnz.numpy(), (want > 0).sum(1))
     assert row_nnz.dtype == torch.int32

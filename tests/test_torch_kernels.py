@@ -29,6 +29,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import hll as khll  # noqa: E402
 from repro_torch.kernels import spgemm_dense as kdense  # noqa: E402
 from repro_torch.kernels import spgemm_hash as khash  # noqa: E402
+from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -59,7 +60,8 @@ def _random_bin(seed, nb, n, r, e):
 @pytest.mark.parametrize("r,e,w,tiles,offset", [
     (4, 8, 256, 1, False), (8, 16, 512, 1, True), (16, 4, 1024, 1, False),
     (4, 8, 128, 2, False), (4, 8, 128, 3, False)])
-def test_dense_plain_matches_xla_twin_and_pallas(r, e, w, tiles, offset):
+def test_dense_plain_matches_xla_twin_and_pallas(r, e, w, tiles, offset,
+                                                launches):
     n = w * tiles - 16
     a_rows, a_vals, a_starts, a_lens, b_cols, b_vals = _random_bin(
         r * e + w + tiles, 48, n, r, e)
@@ -80,16 +82,13 @@ def test_dense_plain_matches_xla_twin_and_pallas(r, e, w, tiles, offset):
                                    **FLOAT_TOL)
     # the slab wrapper takes the plain version for CPU tensors, launching
     # nothing: the windows compacted by extract_window_rows
-    before = (kdense.spgemm_dense_slab.window_launches,
-              kdense.spgemm_dense_slab.longrow_launches)
     slab = kdense.spgemm_dense_slab(*_t(*args), window=w, col_tiles=tiles,
                                     cap=w * tiles)
     want = ops.extract_window_rows(acc, cnt, torch.from_numpy(row_lo),
                                    cap=w * tiles)
     for x, y in zip(slab, want):
         assert torch.equal(x, y)
-    assert before == (kdense.spgemm_dense_slab.window_launches,
-                      kdense.spgemm_dense_slab.longrow_launches)
+    assert launches() == {}
 
 
 def test_dense_plain_row_chunks_change_nothing(monkeypatch):
