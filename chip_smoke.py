@@ -159,6 +159,12 @@ Phases, each of which raises on failure:
    stage, each as a row a warp and as a row a block, and a one-row
    launch; HLL: empty, out-of-range, repeated, 12,000-id and largest-rho
    rows, one-row launches, seeds 0 and 7, each branch of the estimate);
+   last, the scatter kernel on every source of one compaction of the
+   benchmark's FEM and R-MAT matrices (``perfbench/configs``: the bins'
+   slabs, the ESC bin's and the overflow fallback's CSRs, captured as the
+   merge hands them over), bit for bit equal to its plain version and to
+   the multiply's C, timed beside the plain version and one
+   device-to-device copy of C, with its bound in bytes;
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
    against scipy, which also drives the ESC and upper-bound paths; Cohen's
    min-rank estimator on banded's A on the card, its first rows held to
@@ -192,6 +198,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 INT32_OPS_PER_S = 33.5e12   # H100 SXM int32 (half the f32 rate)
 KERNEL_RUNS = 10            # timed launches per kernel (median reported)
+SCATTER_SEED = 3_141_592_653  # values of phase 3's FEM and R-MAT operands
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -304,7 +311,18 @@ def library_product(a, runs: int):
 # ``kernel.launches`` label
 COUNTED = {"dense_window": "dense_window", "dense_longrow": "dense_longrow",
            "hash": "hash", "hll_merge": "hll_merge",
-           "hll_sketch": "hll_sketch", "count": "count_rows"}
+           "hll_sketch": "hll_sketch", "count": "count_rows",
+           "slab_scatter": "slab_scatter"}
+
+
+def scatters_wanted(shards, rep) -> int:
+    """``slab_scatter`` launches one multiply must make: one a source of
+    C's rows, that is one a dense, hash or ESC launch of the plan's bins
+    (``shards``: ``[plan]``, or a sharded plan's shards, whose slices are
+    never empty), and one for the overflow fallback's result when rows
+    overflowed."""
+    return (sum(len(sh.dense) + len(sh.hash) + (sh.esc is not None)
+                for sh in shards) + int(rep.overflow_rows > 0))
 
 
 def reset_counts() -> None:
@@ -1052,7 +1070,8 @@ def same_csr_on_card(x, y) -> bool:
 
 def sharded_wanted(splan, rep, a, b, n, count=None) -> dict:
     """The launches a sharded call must make: the dense and hash kernels
-    once a non-empty (shard, bin) slice; on a cold call ``hll_sketch`` once
+    once a non-empty (shard, bin) slice, ``slab_scatter`` once a source of
+    C's rows (:func:`scatters_wanted`); on a cold call ``hll_sketch`` once
     a non-empty B block when the analysis sketched, ``hll_merge`` once for
     the sampled CR and once a non-empty A block of an estimation
     prediction, and the count kernel ``count`` times (None: not checked);
@@ -1061,7 +1080,8 @@ def sharded_wanted(splan, rep, a, b, n, count=None) -> dict:
     slices = [s for sh in splan.shards for s in sh.dense]
     want = {"dense_window": sum(not s.is_longrow for s in slices),
             "dense_longrow": sum(s.is_longrow for s in slices),
-            "hash": sum(len(sh.hash) for sh in splan.shards)}
+            "hash": sum(len(sh.hash) for sh in splan.shards),
+            "slab_scatter": scatters_wanted(splan.shards, rep)}
     if rep.plan_cache_hit:
         return dict(want, hll_sketch=0, hll_merge=0, count=0)
 
@@ -1700,7 +1720,9 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
             "hash": 2 * len(plan.hash) + tuner, "hll_merge": merges,
             "hll_sketch": int(merges > 0),
             "count": sum(int(r.workflow == "symbolic"
-                             and not r.plan_cache_hit) for r in (rep1, rep2))}
+                             and not r.plan_cache_hit) for r in (rep1, rep2)),
+            "slab_scatter": sum(scatters_wanted([plan], r)
+                                for r in (rep1, rep2))}
     if launched != want or not sum(launched.values()):
         raise AssertionError(f"MoE demo: launches {launched}, want {want} "
                              f"(bins {rep1.bins}, {tuner} by the hash tuner)")
@@ -3008,8 +3030,9 @@ def main() -> int:
         mats.append(("skewed", a))
         results["skewed"] = drive("skewed", a)
     long_path = "skewed" if "skewed" in path_counts else "powerlaw"
-    need = {"banded": ["hll_sketch", "hll_merge", "dense_window"],
-            "powerlaw": ["hash"]}
+    need = {"banded": ["hll_sketch", "hll_merge", "dense_window",
+                       "slab_scatter"],
+            "powerlaw": ["hash", "slab_scatter"]}
     need[long_path] = need.get(long_path, []) + ["dense_longrow"]
 
     def require(need):
@@ -3031,6 +3054,16 @@ def main() -> int:
                                      f"dense bins of its plan {want}")
         log(f"{name}: dense launches per call {json.dumps(want)}, one per "
             "bin")
+        # the scatter: one launch a source of C's rows, every call
+        got = {call: call_counts[name, call]["slab_scatter"]
+               for call in ("cold", "warm")}
+        want = {call: scatters_wanted([plan], rep) for call, (_, rep, _)
+                in zip(("cold", "warm"), results[name])}
+        if got != want:
+            raise AssertionError(f"{name}: slab_scatter launches {got}, "
+                                 f"want {want} (one a source of C's rows)")
+        log(f"{name}: slab_scatter launches per call {json.dumps(got)}, one"
+            " a source of C's rows")
     # the count kernel: one launch per cold symbolic prediction, none warm
     for name, want in (("banded", {"cold": 0, "warm": 0}),
                        ("powerlaw", {"cold": 1, "warm": 0})):
@@ -3114,6 +3147,16 @@ def main() -> int:
             raise AssertionError(f"triangles {call}: hll_merge launches "
                                  f"{launched['hll_merge']}, want "
                                  f"{merges_wanted(rep)}")
+        t_plan = tri_cache.peek(planner.structure_key(
+            low, low, OceanConfig(), None, True, True))
+        if t_plan is None:
+            raise AssertionError(f"triangles {call}: no plan cached")
+        if launched["slab_scatter"] != scatters_wanted([t_plan], rep):
+            raise AssertionError(
+                f"triangles {call}: slab_scatter launches "
+                f"{launched['slab_scatter']}, want "
+                f"{scatters_wanted([t_plan], rep)} (one a source of C's "
+                "rows)")
         log_call(f"triangles {call} (L nnz {low.nnz})", rep, wall, launched,
                  torch.cuda.max_memory_allocated() / 2**30)
         log(f"  triangles {tri}")
@@ -3738,6 +3781,107 @@ def main() -> int:
         "replaces": "src/repro/kernels/spgemm_dense.py:148",
         "launches": counts["count"], "launches_by_path": by_path["count"],
         **cnt_tri, "also": [cnt_pl, cnt_band]})
+
+    def scatter_case(cfg_name):
+        """The scatter kernel on every source of one compaction: the
+        benchmark configuration's A = A through ``ocean_spgemm``, with the
+        sources the merge hands to ``_compact_slabs`` captured (the bins'
+        slabs, the ESC bin's and the overflow fallback's CSRs), each
+        scattered again into fresh arrays by the kernel and by the plain
+        version, both equal to the multiply's C bit for bit; both timed
+        over the whole set, beside one device-to-device copy of C's
+        arrays, and the bound of the bytes the copy moves."""
+        from perfbench import manifest
+        from repro_torch.core import executor
+        from repro_torch.kernels import slab_scatter as ks
+        with open(os.path.join(REPO, "perfbench", "configs",
+                               f"{cfg_name}.json")) as f:
+            cfg = json.load(f)
+        ops_ = manifest.module("gen", cfg["generator"]).make(
+            cfg, SCATTER_SEED, 1, torch.device(dev))
+        ptr, idx = ops_.a.indptr.int(), ops_.a.indices.int()
+        a = formats.CSR(ptr, idx, ops_.a.values[0], tuple(ops_.a.shape),
+                        int(idx.shape[0]))
+        del ops_
+        seen = {}
+        real = executor._compact_slabs
+
+        def spy(state, shape, dtype, device):
+            seen["sources"] = state.finalize()
+            return real(state, shape, dtype, device)
+
+        executor._compact_slabs = spy
+        try:
+            c, rep = workflow.ocean_spgemm(a, a, cache=False)
+        finally:
+            executor._compact_slabs = real
+        del a, ptr, idx
+        sources = [s for s in seen.pop("sources") if s.rows.shape[0]]
+
+        def scatter(fn, cols, vals):
+            for s in sources:
+                fn(c.indptr, cols, vals, s.rows, s.cols, s.vals, nnz=s.nnz,
+                   indptr=s.indptr)
+
+        def bits(v):
+            return v.view(torch.int32)
+
+        got = (torch.full_like(c.indices, -1),
+               torch.full_like(c.values, float("nan")))
+        want = (torch.full_like(c.indices, -1),
+                torch.full_like(c.values, float("nan")))
+        scatter(ks.slab_scatter_cuda, *got)
+        scatter(ks.slab_scatter_plain, *want)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(bits(got[1]), bits(want[1]))):
+            raise AssertionError(f"slab_scatter {cfg_name}: the kernel "
+                                 "differs from the plain version")
+        if not (torch.equal(want[0], c.indices)
+                and torch.equal(bits(want[1]), bits(c.values))):
+            raise AssertionError(f"slab_scatter {cfg_name}: the plain "
+                                 "version differs from the multiply's C")
+        del want
+        ms = time_cuda(lambda: scatter(ks.slab_scatter_cuda, *got),
+                       KERNEL_RUNS)
+        plain_ms = time_cuda(lambda: scatter(ks.slab_scatter_plain, *got),
+                             3)
+        lib_ms = time_cuda(lambda: (got[0].copy_(c.indices),
+                                    got[1].copy_(c.values)), KERNEL_RUNS)
+        rows = sum(int(s.rows.shape[0]) for s in sources)
+        kinds = {"slab": sum(s.nnz is not None for s in sources),
+                 "csr": sum(s.indptr is not None for s in sources)}
+        # each entry read and written, 4 + 4 bytes each way; a row's dest,
+        # count or offsets and C's offset, 16 bytes
+        by = 16.0 * c.nnz + 16.0 * rows
+        b_ms, b_by = bound(by, 0.0, F32_OPS_PER_S)
+        log(f"slab_scatter {cfg_name}: {len(sources)} sources "
+            f"{json.dumps(kinds)} rows {rows} entries {c.nnz} (overflow "
+            f"rows {rep.overflow_rows}); kernel = plain = C bit for bit; "
+            f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms device copy of C "
+            f"{lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}, "
+            f"{by / 1e9:.4f} GB)")
+        out = {"bin": cfg_name, "max_abs_err": 0.0, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms,
+               "library": "one device-to-device copy of C's cols and vals",
+               "shape": {"sources": len(sources), "kinds": kinds,
+                         "rows": rows, "entries": c.nnz,
+                         "overflow_rows": rep.overflow_rows}}
+        del sources, got, c, rep
+        torch.cuda.empty_cache()
+        return out
+
+    sc_fem = scatter_case("fem-q1-elasticity")
+    sc_rmat = scatter_case("graph500-rmat-s15")
+    kernels.append({
+        "name": "slab_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slab_scatter.cu",
+        "replaces": "none (the reference scatters on the host: "
+                    "src/repro/core/executor.py:287)",
+        "launches": counts["slab_scatter"],
+        "launches_by_path": by_path["slab_scatter"],
+        **{k: v for k, v in sc_fem.items() if k != "bin"},
+        "matrix": sc_fem["bin"], "also": [sc_rmat]})
     done()
 
     # ---------------- 4. small suite on the card ----------------

@@ -1,10 +1,12 @@
 """Async device-launch substrate: dispatch -> async D2H -> collect.
 
 PyTorch port of ``repro.core.dispatch``. A :class:`Launch` holds the
-device tensors a stage produced; :func:`start_async_host_copies` copies
-each CUDA tensor into a pinned host buffer with ``non_blocking=True`` on
-the current stream and records a CUDA event behind the copies. A launch is
-ready when its event's ``query()`` is True; CPU tensors are ready at once.
+device tensors a stage produced; :func:`mark_in_flight` records a CUDA
+event behind its work (the executor's launches, which stay on the card),
+and :func:`start_async_host_copies` copies each CUDA tensor into a pinned
+host buffer with ``non_blocking=True`` on the current stream and records
+the event behind the copies (the analysis's launches). A launch is ready
+when its event's ``query()`` is True; CPU tensors are ready at once.
 Collection yields launches in completion order, never behind one global
 barrier. Device-set plumbing (:func:`resolve_devices`, :func:`topology_key`)
 lives here too, so the sharded analysis need not import the partitioner.

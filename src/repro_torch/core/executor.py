@@ -3,25 +3,32 @@
 PyTorch port of ``repro.core.executor``:
 
 * **dispatch** enqueues every (shard, bin) kernel launch on its device's
-  current stream without blocking and starts async copies of each result
-  slab into pinned host memory (``core.dispatch``);
-* **collect** pulls slabs back in completion order (per-launch CUDA
-  events, no global barrier);
-* **merge** runs each slab's overflow scan and the incremental half of
-  compaction on the host while later slabs are still computing or copying;
-  the exact-ESC overflow fallback and the final scatter wait for the set.
+  current stream without blocking, with an event behind each
+  (``core.dispatch``);
+* **collect** takes launches in completion order (per-launch CUDA events,
+  no global barrier);
+* **merge** runs each slab's overflow scan and post-ops on the merge's
+  device, A's; the exact-ESC overflow fallback and the compaction wait
+  for the set.
 
-Slabs are row-disjoint and every kernel's per-row output is independent of
-the other rows of its launch, so the ``serial``, ``pipelined`` and
-``threaded`` collect modes give the same CSR bit for bit, fused
-:class:`MergePostOps` included (column-sum partials fold in dispatch
-order). The post-ops run on the host slabs, in numpy, as the reference's
-do. A device-partitioned plan (``core.partition.ShardedPlan``) runs
-through the same pipeline: its shards' slabs are row subsets of the bins,
-so :func:`execute_sharded_plan` gives the single-device C bit for bit.
+The merge stays on A's device: no slab goes to the host and C is not
+uploaded. Compaction sums every source's row counts into C's ``indptr``,
+allocates C once and copies each source (a bin's slab, an ESC result)
+into it with one ``kernels.slab_scatter`` launch. The host reads only the
+slabs' counts of overflowed rows (once, for all slabs, after collection),
+the overflowed rows themselves, C's size and one m-entry copy of the row
+counts for the report. Slabs are row-disjoint and every kernel's per-row
+output is independent of the other rows of its launch, so the ``serial``,
+``pipelined`` and ``threaded`` collect modes give the same CSR bit for
+bit, fused :class:`MergePostOps` included (column-sum partials fold in
+dispatch order). A device-partitioned plan (``core.partition.ShardedPlan``)
+runs through the same pipeline: its shards' slabs are row subsets of the
+bins, moved to A's device, so :func:`execute_sharded_plan` gives the
+single-device C bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -36,8 +43,8 @@ from ..obs import accuracy as obs_accuracy
 from ..obs import trace
 from . import esc as esc_mod
 from .dispatch import (Launch, collect_in_completion_order, device_context,
-                       host_arrays, start_async_host_copies)
-from .formats import CSR, PAD_COL, csr_from_arrays, csr_rows_to_ell
+                       mark_in_flight)
+from .formats import CSR, PAD_COL
 from .planner import (DenseBinExec, EscExec, ExecutionPlan, HashBinExec,
                       OceanReport, gather_rows)
 
@@ -48,11 +55,44 @@ EXECUTORS = (PIPELINED, THREADED, SERIAL)
 
 
 class _Slab:
-    """Per-row output fragments: row ids + fixed-width (cols, vals, nnz)."""
+    """One source of C's rows, on the merge's device: ``rows`` (R,) int64,
+    the C row of each source row, and either a fixed-width slab
+    ``cols``/``vals`` (R, W) with per-row counts ``nnz`` (a row whose
+    count passes W overflowed and puts nothing in C), or a CSR
+    ``indptr`` (R+1,) over flat ``cols``/``vals``."""
 
-    def __init__(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-                 nnz: np.ndarray):
-        self.rows, self.cols, self.vals, self.nnz = rows, cols, vals, nnz
+    def __init__(self, rows: torch.Tensor, cols: torch.Tensor,
+                 vals: torch.Tensor, nnz: Optional[torch.Tensor] = None,
+                 indptr: Optional[torch.Tensor] = None):
+        self.rows, self.cols, self.vals = rows, cols, vals
+        self.nnz, self.indptr = nnz, indptr
+
+    def spans(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(start, lens)`` of each row in the flat source arrays."""
+        return kops.row_spans(self.cols, self.nnz, self.indptr)
+
+    def raw_counts(self) -> torch.Tensor:
+        """Each row's count as its kernel reported it, overflow included."""
+        return (self.nnz.long() if self.nnz is not None
+                else self.spans()[1])
+
+    def entries(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(row, cols, vals)`` of every entry the source puts in C, in
+        row order (so each row's column order)."""
+        row, pos = kops.row_entries(*self.spans())
+        return (row, self.cols.reshape(-1)[pos],
+                self.vals.reshape(-1)[pos])
+
+
+def _kept(rows: torch.Tensor, row: torch.Tensor, cols: torch.Tensor,
+          vals: torch.Tensor, keep: torch.Tensor) -> _Slab:
+    """The kept entries of a source's ``entries()`` as a CSR source (row
+    order, and so the column sorting within a row, preserved)."""
+    lens = torch.bincount(row[keep], minlength=rows.shape[0])
+    indptr = torch.zeros(rows.shape[0] + 1, dtype=torch.int32,
+                         device=rows.device)
+    indptr[1:] = torch.cumsum(lens, 0)
+    return _Slab(rows, cols[keep], vals[keep], indptr=indptr)
 
 
 # ---------------------------------------------------------------------------
@@ -61,18 +101,18 @@ class _Slab:
 
 @dataclasses.dataclass
 class MergePostOps:
-    """Post-processing fused into the executor's merge, applied to each
-    result slab as it lands on the host (``repro_torch.graph.ops`` builds
-    these):
+    """Post-processing fused into the executor's merge, applied in torch
+    to each result slab on the merge's device as it is collected
+    (``repro_torch.graph.ops`` builds these):
 
     * ``mask_indptr``/``mask_indices``: keep only entries whose (row, col)
       is in the mask pattern — ``mask .* (A @ B)``.
-    * ``transform``: elementwise value map (Hadamard power for MCL
-      inflation, ``sign`` for boolean semirings); sound per slab because
-      each (row, col) entry is accumulated within exactly one slab.
+    * ``transform``: elementwise value map on a tensor (Hadamard power for
+      MCL inflation, ``sign`` for boolean semirings); sound per slab
+      because each (row, col) entry is accumulated within exactly one slab.
     * ``col_normalize``: divide every entry by its column's total of
-      post-transform values; each slab contributes a column-sum partial and
-      the partials fold in dispatch order at compaction time.
+      post-transform values; each slab contributes a float64 column-sum
+      partial and the partials fold in dispatch order at compaction time.
     * ``threshold``: drop entries with ``|value| < threshold`` (after
       normalization when ``col_normalize`` is set, else per slab).
 
@@ -83,7 +123,7 @@ class MergePostOps:
     n_cols: int
     mask_indptr: Optional[np.ndarray] = None
     mask_indices: Optional[np.ndarray] = None
-    transform: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    transform: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     threshold: float = 0.0
     col_normalize: bool = False
 
@@ -96,73 +136,53 @@ class MergePostOps:
             rows = np.repeat(np.arange(len(ptr) - 1, dtype=np.int64),
                              np.diff(ptr))
             # sorted already for a canonical CSR; sort for caller-built masks
-            self._mask_keys = np.sort(rows * np.int64(self.n_cols) + idx)
+            self._mask_keys = torch.from_numpy(
+                np.sort(rows * np.int64(self.n_cols) + idx))
+
+    def mask_keys(self, device) -> Optional[torch.Tensor]:
+        """The mask's sorted ``row * n_cols + col`` keys on ``device``
+        (moved there once)."""
+        if self._mask_keys is not None and self._mask_keys.device != device:
+            self._mask_keys = self._mask_keys.to(device)
+        return self._mask_keys
 
 
-def _compact_rows(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-                  keep: np.ndarray) -> _Slab:
-    """Shift kept entries left into a fresh fixed-width slab (order, and so
-    the column sorting within a row, preserved)."""
-    new_nnz = keep.sum(axis=1).astype(np.int64)
-    w2 = max(int(new_nnz.max()) if len(new_nnz) else 0, 1)
-    out_cols = np.full((keep.shape[0], w2), PAD_COL, np.int32)
-    out_vals = np.zeros((keep.shape[0], w2), vals.dtype)
-    ri, ci = np.nonzero(keep)
-    dest = (np.cumsum(keep, axis=1) - 1)[ri, ci]
-    out_cols[ri, dest] = cols[ri, ci]
-    out_vals[ri, dest] = vals[ri, ci]
-    return _Slab(rows, out_cols, out_vals, new_nnz)
+def _column_sums(cols: torch.Tensor, vals: torch.Tensor,
+                 n_cols: int) -> torch.Tensor:
+    """(n_cols,) float64 sums of ``vals`` by column, each column's values
+    added in their order: a stable sort, then ``esc.segment_sum`` (no
+    atomics, so the same on every run)."""
+    key, perm = torch.sort(cols.long(), stable=True)
+    uniq, per_col = torch.unique_consecutive(key, return_counts=True)
+    out = torch.zeros(n_cols, dtype=torch.float64, device=cols.device)
+    out[uniq] = esc_mod.segment_sum(vals.double()[perm], per_col)
+    return out
 
 
 def _filter_slab(slab: _Slab, post: MergePostOps
-                 ) -> Tuple[_Slab, Optional[np.ndarray]]:
+                 ) -> Tuple[_Slab, Optional[torch.Tensor]]:
     """The per-slab half of the post-ops (mask, transform, eager prune):
-    the filtered slab and its column-sum partial."""
-    r, w = slab.cols.shape
-    if r == 0:
-        return slab, (np.zeros(post.n_cols, np.float64)
-                      if post.col_normalize else None)
-    slot = np.arange(w, dtype=np.int64)[None, :]
-    keep = (slot < slab.nnz[:, None]) & (slab.cols != PAD_COL)
-    vals = slab.vals
-    if post._mask_keys is not None:
-        keys = (slab.rows[:, None].astype(np.int64) * np.int64(post.n_cols)
-                + slab.cols.astype(np.int64))
-        pos = np.searchsorted(post._mask_keys, keys)
-        member = np.zeros(keys.shape, bool)
-        in_rng = pos < len(post._mask_keys)
-        member[in_rng] = post._mask_keys[pos[in_rng]] == keys[in_rng]
+    the filtered source, as a CSR, and its column-sum partial."""
+    row, cols, vals = slab.entries()
+    keep = cols != PAD_COL
+    keys = post.mask_keys(cols.device)
+    if keys is not None:
+        key = slab.rows[row] * post.n_cols + cols.long()
+        pos = torch.searchsorted(keys, key)
+        member = torch.zeros_like(keep)
+        in_rng = pos < keys.shape[0]
+        member[in_rng] = keys[pos[in_rng]] == key[in_rng]
         keep &= member
     if post.transform is not None:
-        # zero the dropped slots first so transforms need not map 0 -> 0
-        vals = np.where(keep, post.transform(np.where(keep, vals, 0)), 0)
-        vals = vals.astype(slab.vals.dtype, copy=False)
-    eager_prune = post.threshold > 0.0 and not post.col_normalize
-    if eager_prune:
-        keep &= np.abs(vals) >= post.threshold
-    colsum = None
-    if post.col_normalize:
-        colsum = np.zeros(post.n_cols, np.float64)
-        np.add.at(colsum, slab.cols[keep].astype(np.int64),
-                  vals[keep].astype(np.float64))
-    if post._mask_keys is None and not eager_prune:
-        # values-only post: no entry drops, so no re-compaction
-        return _Slab(slab.rows, slab.cols, vals, slab.nnz), colsum
-    return _compact_rows(slab.rows, slab.cols, vals, keep), colsum
-
-
-def _esc_to_slab(indptr: np.ndarray, indices: np.ndarray,
-                 values: np.ndarray, nnz: int, rows: np.ndarray,
-                 out_cap: int) -> _Slab:
-    """An ESC result over a row subset (host arrays) as a slab."""
-    esc_mod.ensure_esc_capacity(nnz, out_cap, where="ESC shard")
-    counts = (indptr[1:] - indptr[:-1])[: len(rows)].astype(np.int64)
-    width = max(int(counts.max()) if len(counts) else 1, 1)
-    ell_i, ell_v = csr_rows_to_ell(
-        torch.from_numpy(indptr), torch.from_numpy(indices),
-        torch.from_numpy(values), num_rows=len(rows), ell_width=width,
-        pad_index=PAD_COL)
-    return _Slab(rows, ell_i.numpy(), ell_v.numpy(), counts)
+        # zero the dropped entries first so transforms need not map 0 -> 0
+        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+        vals = torch.where(keep, post.transform(torch.where(keep, vals, zero)),
+                           zero).to(vals.dtype)
+    if post.threshold > 0.0 and not post.col_normalize:
+        keep &= vals.abs() >= post.threshold
+    colsum = (_column_sums(cols[keep], vals[keep], post.n_cols)
+              if post.col_normalize else None)
+    return _kept(slab.rows, row, cols, vals, keep), colsum
 
 
 def _gather_ell_values(exec_, a_values: torch.Tensor) -> torch.Tensor:
@@ -202,40 +222,38 @@ def _run_esc_bin(ex: EscExec, a_values: torch.Tensor, b_arrays,
         b_values, num_rows_a=ex.sub_indptr.shape[0] - 1, n_cols_b=n_cols)
 
 
-def _scatter_slabs(slabs: List[_Slab], m: int, dtype: torch.dtype
-                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Row-disjoint slabs scattered into one CSR's host arrays."""
-    dtype = torch.empty((), dtype=dtype).numpy().dtype
-    counts = np.zeros(m, np.int64)
-    for s in slabs:
-        counts[s.rows] = s.nnz
-    indptr = np.zeros(m + 1, np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    total = int(indptr[-1])
-    out_cols = np.full(total, PAD_COL, np.int32)
-    out_vals = np.zeros(total, dtype)
-    for s in slabs:
-        if not len(s.rows):
-            continue
-        capw = s.cols.shape[1]
-        slot = np.arange(capw)[None, :]
-        valid = slot < s.nnz[:, None]
-        pos = indptr[s.rows][:, None] + slot
-        out_cols[pos[valid]] = s.cols[valid]
-        out_vals[pos[valid]] = s.vals[valid]
-    return indptr, out_cols, out_vals
-
-
 def _compact_slabs(state: "_MergeState", shape: Tuple[int, int],
-                   dtype: torch.dtype, device) -> Tuple[CSR, int]:
-    """The merge state's slabs as one CSR on ``device``: the host scatter,
-    then the upload, each timed into the state's ``span_seconds``."""
-    with trace.timed("exec.compact.scatter", state.span_seconds):
-        indptr, cols, vals = _scatter_slabs(state.finalize(), shape[0],
-                                            dtype)
-    with trace.timed("exec.compact.upload", state.span_seconds):
-        c = csr_from_arrays(indptr, cols, vals, shape, device=device)
-    return c, int(indptr[-1])
+                   dtype: torch.dtype, device) -> CSR:
+    """The merge state's sources as one CSR on ``device``: their row counts
+    scattered into ``state.counts``, ``indptr`` its cumsum (C's size read
+    once), C allocated once and each source copied in by one
+    ``slab_scatter`` launch, its arrays released after; timed into the
+    state's ``span_seconds``."""
+    m = shape[0]
+    with trace.timed("exec.compact.scatter", state.span_seconds) as span:
+        sources = state.finalize()
+        counts = torch.zeros(m, dtype=torch.int64, device=device)
+        for s in sources:
+            counts[s.rows] = s.spans()[1]
+        ends = torch.cumsum(counts, 0)
+        total = int(ends[-1]) if m else 0
+        if total >= 2**31:
+            raise ValueError(f"C has {total} entries; its int32 indptr "
+                             "holds fewer than 2**31")
+        indptr = torch.zeros(m + 1, dtype=torch.int32, device=device)
+        indptr[1:] = ends
+        del ends
+        cols = torch.empty(total, dtype=torch.int32, device=device)
+        vals = torch.empty(total, dtype=dtype, device=device)
+        launches = 0
+        for s in sources:
+            if s.rows.shape[0]:
+                kops.slab_scatter(indptr, cols, vals, s.rows, s.cols,
+                                  s.vals, nnz=s.nnz, indptr=s.indptr)
+                launches += 1
+        span.set(entries=total, launches=launches)
+    state.counts = counts
+    return CSR(indptr, cols, vals, shape, total)
 
 
 @dataclasses.dataclass
@@ -255,12 +273,12 @@ def _shards_of_plan(plan: ExecutionPlan) -> List[_ShardWork]:
 
 def _dispatch(shards: List[_ShardWork], a_values: torch.Tensor,
               b: CSR) -> List[Launch]:
-    """Enqueue every (shard, bin) launch without blocking and start the
-    async copies of its results. B is padded once on its device and moved
-    to each shard's (``.to`` is a no-op on the same device). Tags are
+    """Enqueue every (shard, bin) launch without blocking, each with an
+    event behind its work. B is padded once on its device and moved to
+    each shard's (``.to`` is a no-op on the same device). Tags are
     ``(kind, exec)``; ESC launches carry their exact nnz as a third tag
     field. While tracing, each launch's ``timing`` brackets its gather,
-    kernel and epilogue on the device, and none of its copies."""
+    kernel and epilogue on the device."""
     items: List[Launch] = []
     order = 0
     with device_context(b.device):
@@ -274,25 +292,27 @@ def _dispatch(shards: List[_ShardWork], a_values: torch.Tensor,
             for be in shard.dense:
                 timer = trace.device_timer(dev)
                 arrays = _run_dense_bin(be, a_values, b_cols_pad, b_vals_pad)
-                items.append(Launch(("dense", be), order, tuple(arrays),
-                                    timing=timer and timer.stop()))
+                items.append(mark_in_flight(Launch(
+                    ("dense", be), order, tuple(arrays),
+                    timing=timer and timer.stop())))
                 order += 1
             for hb in shard.hash:
                 timer = trace.device_timer(dev)
                 arrays = _run_hash_bin(hb, a_values, b_cols_pad, b_vals_pad)
-                items.append(Launch(("hash", hb), order, tuple(arrays),
-                                    timing=timer and timer.stop()))
+                items.append(mark_in_flight(Launch(
+                    ("hash", hb), order, tuple(arrays),
+                    timing=timer and timer.stop())))
                 order += 1
             if shard.esc is not None:
                 b_esc = tuple(x.to(dev) for x in (b.indptr, b.indices,
                                                   b.values))
                 timer = trace.device_timer(dev)
                 res = _run_esc_bin(shard.esc, a_values, b_esc, b.n)
-                items.append(Launch(("esc", shard.esc, res.nnz), order,
-                                    (res.indptr, res.indices, res.values),
-                                    timing=timer and timer.stop()))
+                items.append(mark_in_flight(Launch(
+                    ("esc", shard.esc, res.nnz), order,
+                    (res.indptr, res.indices, res.values),
+                    timing=timer and timer.stop())))
                 order += 1
-    start_async_host_copies(items)
     return items
 
 
@@ -318,42 +338,51 @@ def _record_device_spans(items: List[Launch]) -> Dict[str, float]:
     return out
 
 
-def _materialize(it: Launch) -> _Slab:
-    """Pull one launch to the host (blocks only on this launch)."""
+def _materialize(it: Launch, device) -> _Slab:
+    """One launch as a source of C's rows on ``device`` (blocks only on
+    this launch; ``.to`` is a no-op on the launch's own device)."""
+    if it.event is not None:
+        it.event.synchronize()
     kind, exec_ = it.tag[:2]
-    arrays = host_arrays(it)
+    arrays = [x.to(device) for x in it.arrays]
     if kind in ("dense", "hash"):
         nv = exec_.n_valid
         cols, vals, nnz = arrays
-        return _Slab(exec_.rows, cols[:nv], vals[:nv],
-                     nnz[:nv].astype(np.int64))
+        return _Slab(exec_.out_rows, cols[:nv], vals[:nv], nnz=nnz[:nv])
     indptr, indices, values = arrays
-    return _esc_to_slab(indptr, indices, values, it.tag[2], exec_.rows,
-                        exec_.out_cap)
+    esc_mod.ensure_esc_capacity(it.tag[2], exec_.out_cap, where="ESC shard")
+    return _Slab(exec_.out_rows, indices, values, indptr=indptr)
 
 
-# the overflow-fallback slab's position in the merge order: after every
+# the overflow-fallback source's position in the merge order: after every
 # dispatched launch
 _FALLBACK_ORDER = 1 << 31
 
 
 class _MergeState:
-    """Incremental host merge: overflow scanning, fused post-ops and the
-    counting half of compaction, fed one slab at a time (add-order
-    independent)."""
+    """Incremental merge on the merge's device: overflow scanning and
+    fused post-ops, fed one source at a time (add-order independent);
+    compaction takes the sources in merge order."""
 
-    def __init__(self, m_rows: int, post: Optional[MergePostOps] = None,
+    def __init__(self, m_rows: int, device,
+                 post: Optional[MergePostOps] = None,
                  span_seconds: Optional[Dict[str, float]] = None):
         self.kept: List[Tuple[int, _Slab]] = []
-        self.overflow: Dict[int, np.ndarray] = {}
+        # each slab's overflow scan on the device: (dispatch order, cause,
+        # rows, overflowed mask, its count)
+        self.overflow: List[Tuple[int, str, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]] = []
         # which bin family's capacity the overflowed rows broke
         self.overflow_causes: Dict[str, int] = {}
         self.post = post
-        self.colsum_parts: List[Tuple[int, np.ndarray]] = []
+        self.colsum_parts: List[Tuple[int, torch.Tensor]] = []
         # exact per-row nnz of the raw (unfiltered) product, which graph
         # chains feed forward; only kept when post-ops may filter it
-        self.raw_counts = (np.zeros(m_rows, np.int64)
+        self.raw_counts = (torch.zeros(m_rows, dtype=torch.int64,
+                                       device=device)
                            if post is not None else None)
+        # C's row counts, once compacted
+        self.counts: Optional[torch.Tensor] = None
         # seconds of the multiply's timed steps, by span name (the plan
         # lookup's, timed before, are already in a caller's dict)
         self.span_seconds: Dict[str, float] = (
@@ -369,76 +398,78 @@ class _MergeState:
     def add(self, it: Launch, slab: _Slab) -> None:
         if self.raw_counts is not None:
             # dense counts are exact past the slab width; a hash row that
-            # overflowed counts failed inserts, but the fallback slab
+            # overflowed counts failed inserts, but the fallback source
             # rewrites every overflowed row's count before finalize
-            self.raw_counts[slab.rows] = slab.nnz
+            self.raw_counts[slab.rows] = slab.raw_counts()
         kind, exec_ = it.tag[:2]
         if kind in ("dense", "hash"):  # ESC caps are upper bounds
+            # enqueued only: the host reads the scan once, for every slab
             over = slab.nnz > slab.cols.shape[1]
-            if over.any():
-                self.overflow[it.order] = slab.rows[over]
-                cause = ("hash_spill" if kind == "hash"
-                         else "longrow_slab" if exec_.is_longrow
-                         else "dense_window")
-                self.overflow_causes[cause] = (
-                    self.overflow_causes.get(cause, 0) + int(over.sum()))
-                keep = ~over
-                slab = _Slab(slab.rows[keep], slab.cols[keep],
-                             slab.vals[keep], slab.nnz[keep])
+            cause = ("hash_spill" if kind == "hash"
+                     else "longrow_slab" if exec_.is_longrow
+                     else "dense_window")
+            self.overflow.append((it.order, cause, slab.rows, over,
+                                  over.sum()))
         self._admit(it.order, slab)
 
     def add_fallback(self, slab: _Slab) -> None:
         if self.raw_counts is not None:
-            self.raw_counts[slab.rows] = slab.nnz
+            self.raw_counts[slab.rows] = slab.raw_counts()
         self._admit(_FALLBACK_ORDER, slab)
 
-    def fallback_rows(self) -> Optional[np.ndarray]:
-        """Overflowed rows in dispatch order."""
+    def fallback_rows(self) -> Optional[Tuple[np.ndarray, torch.Tensor]]:
+        """Overflowed rows in dispatch order, on the host and the device,
+        and ``overflow_causes`` counted: one host copy of every slab's
+        count of overflowed rows, then one of the overflowed rows, where
+        there are any."""
         if not self.overflow:
             return None
-        return np.concatenate(
-            [self.overflow[k] for k in sorted(self.overflow)])
+        parts = sorted(self.overflow, key=lambda t: t[0])
+        n_over = torch.stack([p[4] for p in parts]).tolist()
+        dev_rows = []
+        for (_, cause, rows, over, _), n in zip(parts, n_over):
+            if n:
+                dev_rows.append(rows[over])
+                self.overflow_causes[cause] = (
+                    self.overflow_causes.get(cause, 0) + n)
+        if not dev_rows:
+            return None
+        dev_rows = torch.cat(dev_rows)
+        return dev_rows.cpu().numpy(), dev_rows
 
     def finalize(self) -> List[_Slab]:
-        """The deferred half of the post-ops: fold the column-sum partials
-        in dispatch order, then normalize (and prune after it). Without
-        ``col_normalize`` the slabs in dispatch order."""
+        """The sources in merge order. With ``col_normalize``, the deferred
+        half of the post-ops first: fold the column-sum partials in
+        dispatch order, then normalize (and prune after it)."""
         kept = [s for _, s in sorted(self.kept, key=lambda t: t[0])]
         post = self.post
         if post is None or not post.col_normalize:
             return kept
-        colsum = np.zeros(post.n_cols, np.float64)
+        colsum = None
         for _, part in sorted(self.colsum_parts, key=lambda t: t[0]):
-            colsum += part
+            colsum = part if colsum is None else colsum + part
         out: List[_Slab] = []
         for s in kept:
-            if not len(s.rows):
-                out.append(s)
-                continue
-            slot = np.arange(s.cols.shape[1], dtype=np.int64)[None, :]
-            valid = slot < s.nnz[:, None]
-            denom = colsum[np.clip(s.cols, 0, post.n_cols - 1)
-                           .astype(np.int64)]
+            row, cols, vals = s.entries()
+            denom = colsum[cols.long()]
             # a zero column sum means every value in the column is zero
-            vals = s.vals.astype(np.float64) / np.where(denom == 0.0, 1.0,
-                                                        denom)
-            vals = np.where(valid, vals, 0.0).astype(s.vals.dtype)
-            if post.threshold > 0.0:
-                out.append(_compact_rows(
-                    s.rows, s.cols, vals,
-                    valid & (np.abs(vals) >= post.threshold)))
-            else:
-                out.append(_Slab(s.rows, s.cols, vals, s.nnz))
+            vals = (vals.double() / torch.where(denom == 0.0, 1.0, denom)
+                    ).to(s.vals.dtype)
+            keep = (vals.abs() >= post.threshold if post.threshold > 0.0
+                    else torch.ones_like(vals, dtype=torch.bool))
+            out.append(_kept(s.rows, row, cols, vals, keep))
         return out
 
 
 def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
                            a: CSR, b: CSR) -> int:
-    """Re-run overflowed rows through the exact ESC pass (paper §3.2):
-    gather, ESC on A's device, copy back, slab; each step timed."""
-    rows = state.fallback_rows()
-    if rows is None:
+    """Re-run overflowed rows through the exact ESC pass (paper §3.2) on
+    A's device: gather, then ESC, each step timed; its CSR is the merge's
+    last source."""
+    fb = state.fallback_rows()
+    if fb is None:
         return 0
+    rows, dev_rows = fb
     secs = state.span_seconds
     with trace.timed("exec.overflow_fallback", secs, rows=len(rows)):
         with trace.timed("exec.fallback.gather", secs):
@@ -447,12 +478,11 @@ def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
             res = esc_mod.esc_spgemm(
                 sub.indptr, sub.indices, sub.values, b.indptr, b.indices,
                 b.values, num_rows_a=sub.m, n_cols_b=b.n)
-        with trace.timed("exec.fallback.copyback", secs):
-            host = [x.cpu().numpy() for x in (res.indptr, res.indices,
-                                              res.values)]
-        with trace.timed("exec.fallback.slab", secs):
-            p_cap = int(products[rows].sum())
-            state.add_fallback(_esc_to_slab(*host, res.nnz, rows, p_cap))
+            esc_mod.ensure_esc_capacity(res.nnz, int(products[rows].sum()),
+                                        where="ESC shard")
+        del sub
+        state.add_fallback(_Slab(dev_rows.to(a.device), res.indices,
+                                 res.values, indptr=res.indptr))
     return len(rows)
 
 
@@ -463,16 +493,16 @@ def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
 def _collect_serial(items, plan, a, b, stage, dispatch_s, state):
     """One global barrier, then merge every slab."""
     t0 = time.perf_counter()
-    slabs = [(it, _materialize(it)) for it in items]
+    slabs = [(it, _materialize(it, a.device)) for it in items]
     collect_s = time.perf_counter() - t0
     trace.add_span("exec.collect", t0, collect_s)
     t0 = time.perf_counter()
     for it, slab in slabs:
         state.add(it, slab)
     merge_s = time.perf_counter() - t0
-    c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
-                                         dispatch_s, collect_s, merge_s)
-    return c, total, n_overflow, 0.0
+    c, n_overflow = _finish_merge(state, plan, a, b, stage, dispatch_s,
+                                  collect_s, merge_s)
+    return c, n_overflow, 0.0
 
 
 def _finish_merge(state, plan, a, b, stage, dispatch_s, collect_s, merge_s):
@@ -481,26 +511,24 @@ def _finish_merge(state, plan, a, b, stage, dispatch_s, collect_s, merge_s):
     t0 = time.perf_counter()
     n_overflow = _run_overflow_fallback(state, plan.products, a, b)
     with trace.timed("exec.compact", state.span_seconds):
-        c, total = _compact_slabs(state, (a.m, b.n), a.values.dtype,
-                                  a.device)
+        c = _compact_slabs(state, (a.m, b.n), a.values.dtype, a.device)
     t2 = time.perf_counter()
     stage["dispatch"] = dispatch_s
     stage["collect"] = collect_s
     stage["merge"] = merge_s + (t2 - t0)
-    return c, total, n_overflow
+    return c, n_overflow
 
 
 def _collect_pipelined(items, plan, a, b, stage, dispatch_s, state):
-    """Slabs are pulled in completion order and each one's overflow scan,
-    post-ops and count accumulation run while later slabs are still in
-    flight."""
+    """Launches are taken in completion order and each one's overflow scan
+    and post-ops are enqueued while later launches are still in flight."""
     collect_s = merge_s = overlap_s = 0.0
     n_left = len(items)
     traced = trace.enabled()
     for it in collect_in_completion_order(items):
         n_left -= 1
         t0 = time.perf_counter()
-        slab = _materialize(it)
+        slab = _materialize(it, a.device)
         dt_c = time.perf_counter() - t0
         collect_s += dt_c
         if traced:
@@ -515,19 +543,21 @@ def _collect_pipelined(items, plan, a, b, stage, dispatch_s, state):
         merge_s += dt
         if n_left:
             overlap_s += dt
-    c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
-                                         dispatch_s, collect_s, merge_s)
-    return c, total, n_overflow, overlap_s
+    c, n_overflow = _finish_merge(state, plan, a, b, stage, dispatch_s,
+                                  collect_s, merge_s)
+    return c, n_overflow, overlap_s
 
 
 def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
     """Collect on this thread, merge on a dedicated worker thread (the sole
-    mutator of the merge state), so merging proceeds while the collect loop
-    blocks on a device copy."""
+    mutator of the merge state, on this thread's stream), so merging
+    proceeds while the collect loop waits on a launch."""
     slabs: "queue.Queue[Optional[Tuple[Launch, _Slab]]]" = queue.Queue()
     spans: List[Tuple[float, float]] = []
     errors: List[BaseException] = []
     worker_tid: List[int] = []
+    stream = (torch.cuda.current_stream(a.device)
+              if a.device.type == "cuda" else None)
 
     def worker():
         worker_tid.append(threading.get_ident())
@@ -538,7 +568,9 @@ def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
             it, slab = item
             t0 = time.perf_counter()
             try:
-                state.add(it, slab)
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    state.add(it, slab)
             except BaseException as e:  # re-raised on the main thread
                 errors.append(e)
                 return
@@ -552,7 +584,7 @@ def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
     try:
         for it in collect_in_completion_order(items):
             t0 = time.perf_counter()
-            slab = _materialize(it)
+            slab = _materialize(it, a.device)
             dt_c = time.perf_counter() - t0
             collect_s += dt_c
             if traced:
@@ -573,9 +605,9 @@ def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
                            mid=mid)
     merge_s = sum(dt for _, dt in spans)
     overlap_s = sum(min(max(collect_end - t0, 0.0), dt) for t0, dt in spans)
-    c, total, n_overflow = _finish_merge(state, plan, a, b, stage,
-                                         dispatch_s, collect_s, merge_s)
-    return c, total, n_overflow, overlap_s
+    c, n_overflow = _finish_merge(state, plan, a, b, stage, dispatch_s,
+                                  collect_s, merge_s)
+    return c, n_overflow, overlap_s
 
 
 _COLLECT_OF = {PIPELINED: _collect_pipelined, THREADED: _collect_threaded,
@@ -611,17 +643,18 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
     dispatch_s = time.perf_counter() - t0
     trace.add_span("exec.dispatch", t0, dispatch_s, launches=len(items))
 
-    state = _MergeState(a.m, post, span_seconds)
-    c, total, n_overflow, overlap_s = _COLLECT_OF[executor](
+    state = _MergeState(a.m, a.device, post, span_seconds)
+    c, n_overflow, overlap_s = _COLLECT_OF[executor](
         items, plan, a, b, stage, dispatch_s, state)
     device_s = _record_device_spans(items) if trace.enabled() else None
     overlap_s = min(max(overlap_s, 0.0), stage.get("merge", 0.0))
     causes = state.overflow_causes
 
     # estimation-accuracy telemetry on the raw product's row nnz (the merge
-    # state's pre-filter counts when post-ops may have pruned the output)
-    exact_nnz = (state.raw_counts if state.raw_counts is not None
-                 else np.diff(np.asarray(c.indptr.cpu().numpy(), np.int64)))
+    # state's pre-filter counts when post-ops may have pruned the output):
+    # the multiply's one m-entry copy to the host
+    exact_nnz = (state.counts if state.raw_counts is None
+                 else state.raw_counts).cpu().numpy()
     if plan.feed_forward and causes:
         causes = {f"{k}+stale_feed": v for k, v in causes.items()}
     accuracy = obs_accuracy.measure_accuracy(plan, exact_nnz, causes)
@@ -631,12 +664,12 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
         nproducts_avg=plan.nproducts_avg,
         total_products=plan.total_products, m_regs=plan.m_regs,
         stage_seconds=stage, bins=dict(plan.bins_describe),
-        overflow_rows=n_overflow, nnz_out=total, plan_cache_hit=cache_hit,
+        overflow_rows=n_overflow, nnz_out=c.nnz, plan_cache_hit=cache_hit,
         feed_forward=plan.feed_forward, n_shards=n_shards,
         shard_imbalance=shard_imbalance, executor=executor,
         overlap_seconds=overlap_s, analysis_shards=plan.analysis_shards,
         analysis_shard_seconds=plan.analysis_shard_seconds,
-        raw_row_nnz=state.raw_counts,
+        raw_row_nnz=exact_nnz if state.raw_counts is not None else None,
         wave2_overlap_seconds=plan.wave2_overlap_seconds,
         wave2_overlapped=plan.wave2_overlapped,
         estimation_accuracy=accuracy, decision=plan.decision,
@@ -671,8 +704,8 @@ def execute_sharded_plan(splan, a: CSR, b: CSR, *,
                          ) -> Tuple[CSR, OceanReport]:
     """Run a :class:`~repro_torch.core.partition.ShardedPlan` across its
     devices: each shard's bins launch on its device, and the slabs merge
-    through the same pipeline as :func:`execute_plan` (post-ops included,
-    which run on the host), so C is the single-device C bit for bit."""
+    through the same pipeline as :func:`execute_plan` (post-ops included),
+    on A's device, so C is the single-device C bit for bit."""
     if stage is None:
         stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0,
                  "partition": 0.0}

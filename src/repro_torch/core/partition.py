@@ -115,8 +115,9 @@ def _slice_dense(be: DenseBinExec, sel: np.ndarray, device) -> DenseBinExec:
     idx = torch.from_numpy(sel).to(be.a_rows.device)
     return DenseBinExec(
         window=be.window, col_tiles=be.col_tiles, cap=be.cap,
-        rows=be.rows[sel], ell_width=be.ell_width, is_longrow=be.is_longrow,
-        pos=be.pos[idx], valid=be.valid[idx],
+        rows=be.rows[sel], out_rows=be.out_rows[idx],
+        ell_width=be.ell_width, is_longrow=be.is_longrow, pos=be.pos[idx],
+        valid=be.valid[idx],
         a_rows=_take(be.a_rows, idx, device),
         a_starts=_take(be.a_starts, idx, device),
         a_lens=_take(be.a_lens, idx, device),
@@ -130,7 +131,8 @@ def _slice_hash(hb: HashBinExec, sel: np.ndarray, device) -> HashBinExec:
     idx = torch.from_numpy(sel).to(hb.a_rows.device)
     return HashBinExec(
         table=hb.table, spill=hb.spill, rows=hb.rows[sel],
-        ell_width=hb.ell_width, pos=hb.pos[idx], valid=hb.valid[idx],
+        out_rows=hb.out_rows[idx], ell_width=hb.ell_width, pos=hb.pos[idx],
+        valid=hb.valid[idx],
         a_rows=_take(hb.a_rows, idx, device),
         a_starts=_take(hb.a_starts, idx, device),
         a_lens=_take(hb.a_lens, idx, device), cost=hb.cost[sel],
@@ -147,6 +149,7 @@ def _slice_esc(ex: EscExec, sel: np.ndarray, device) -> EscExec:
     cost = ex.cost[sel]
     return EscExec(
         rows=ex.rows[sel],
+        out_rows=ex.out_rows[torch.from_numpy(sel).to(ex.out_rows.device)],
         sub_indptr=torch.from_numpy(new_ptr.astype(np.int32)).to(device),
         sub_indices=_take(ex.sub_indices, seg_t, device),
         src=ex.src[seg_t.to(ex.src.device)], out_cap=int(cost.sum()),

@@ -190,6 +190,7 @@ class DenseBinExec:
     col_tiles: int
     cap: int
     rows: np.ndarray
+    out_rows: torch.Tensor     # (R,) int64 ``rows`` on the plan's device
     ell_width: int
     is_longrow: bool
     pos: torch.Tensor          # (R, ell) int64 gather into A's nnz arrays
@@ -212,6 +213,7 @@ class HashBinExec:
     table: int
     spill: int
     rows: np.ndarray
+    out_rows: torch.Tensor     # (R,) int64 ``rows`` on the plan's device
     ell_width: int
     pos: torch.Tensor
     valid: torch.Tensor
@@ -229,6 +231,7 @@ class HashBinExec:
 class EscExec:
     """The ESC bin: sub-CSR structure (on the plan's device) + capacity."""
     rows: np.ndarray
+    out_rows: torch.Tensor     # (R,) int64 ``rows`` on the plan's device
     sub_indptr: torch.Tensor   # (rows+1,) int32
     sub_indices: torch.Tensor  # gathered column ids
     src: torch.Tensor          # int64 gather into A's values (A's device)
@@ -431,26 +434,27 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
 
     dense_execs: List[DenseBinExec] = []
     for bin_id, bn in enumerate(plan.dense_bins):
-        pos, valid, a_rows, a_starts, a_lens = kops.prep_bin_structure(
-            a, b, bn.rows, bn.ell_width)
+        out_rows, pos, valid, a_rows, a_starts, a_lens = \
+            kops.prep_bin_structure(a, b, bn.rows, bn.ell_width)
         lo_arr = (out_lo[bn.rows] if not bn.is_longrow
                   else np.zeros(len(bn.rows)))
         row_lo = torch.from_numpy(
             lo_arr.reshape(-1, 1).astype(np.int32)).to(dev)
         dense_execs.append(DenseBinExec(
             window=bn.window, col_tiles=bn.col_tiles, cap=bn.cap,
-            rows=bn.rows, ell_width=bn.ell_width, is_longrow=bn.is_longrow,
-            pos=pos, valid=valid, a_rows=a_rows, a_starts=a_starts,
-            a_lens=a_lens, row_lo=row_lo, cost=np.asarray(bn.cost, np.int64),
-            bin_id=bin_id, n_valid=len(bn.rows)))
+            rows=bn.rows, out_rows=out_rows, ell_width=bn.ell_width,
+            is_longrow=bn.is_longrow, pos=pos, valid=valid, a_rows=a_rows,
+            a_starts=a_starts, a_lens=a_lens, row_lo=row_lo,
+            cost=np.asarray(bn.cost, np.int64), bin_id=bin_id,
+            n_valid=len(bn.rows)))
 
     hash_execs: List[HashBinExec] = []
     for hash_id, hb in enumerate(plan.hash_bins):
-        pos, valid, a_rows, a_starts, a_lens = kops.prep_bin_structure(
-            a, b, hb.rows, hb.ell_width)
+        out_rows, pos, valid, a_rows, a_starts, a_lens = \
+            kops.prep_bin_structure(a, b, hb.rows, hb.ell_width)
         tuned = tuning_mod.hash_tuning_for(hb.table, device=dev)
         hash_execs.append(HashBinExec(
-            table=hb.table, spill=hb.spill, rows=hb.rows,
+            table=hb.table, spill=hb.spill, rows=hb.rows, out_rows=out_rows,
             ell_width=hb.ell_width, pos=pos, valid=valid, a_rows=a_rows,
             a_starts=a_starts, a_lens=a_lens,
             cost=np.asarray(hb.cost, np.int64),
@@ -470,6 +474,7 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         src_t = torch.from_numpy(src).to(dev)
         esc_exec = EscExec(
             rows=rows,
+            out_rows=torch.as_tensor(rows, dtype=torch.int64).to(dev),
             sub_indptr=torch.from_numpy(sub_ptr.astype(np.int32)).to(dev),
             sub_indices=a.indices[src_t], src=src_t, out_cap=p_cap,
             cost=np.asarray(plan.esc_costs, np.int64), n_valid=len(rows))

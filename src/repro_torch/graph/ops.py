@@ -2,17 +2,29 @@
 
 PyTorch port of ``repro.graph.ops``. Masks, value transforms, pruning and
 column normalization are fused into the executor's merge
-(``core.executor.MergePostOps``, applied per result slab on the host as it
-lands) instead of running as separate passes over an assembled CSR. This
-module builds those post-ops for the graph algorithms and provides the
-standalone host equivalents (for values-only steps between multiplies and
-as oracles); their results live on the input's device.
+(``core.executor.MergePostOps``, applied in torch to each result slab on
+the multiply's device as it is collected) instead of running as separate
+passes over an assembled CSR. This module builds those post-ops for the
+graph algorithms and provides the standalone host equivalents (for
+values-only steps between multiplies and as oracles); their results live
+on the input's device.
+
+Where the post-ops run: in the one merge there is, in torch on the
+multiply's device. Mask membership is a ``torch.searchsorted`` against the
+mask's keys, moved to the device once per ``MergePostOps``; a
+``transform`` takes and returns tensors (so the ones built here are
+``torch.pow(v.abs(), power)`` and ``(v != 0).to(v.dtype)``); the kept
+entries become a CSR source that the ``slab_scatter`` kernel copies into
+C; column-sum partials are float64, summed per column by a stable sort and
+``esc.segment_sum`` (no atomics) and folded in dispatch order. Nothing of
+a slab goes to the host.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.analysis import OceanConfig
 from ..core.executor import MergePostOps
@@ -39,7 +51,7 @@ def mask_post(mask: CSR, *, threshold: float = 0.0) -> MergePostOps:
 def bool_post(n_cols: int) -> MergePostOps:
     """Boolean-semiring collapse: every accumulated value becomes 1.0."""
     return MergePostOps(n_cols=n_cols,
-                        transform=lambda v: (v != 0).astype(v.dtype))
+                        transform=lambda v: (v != 0).to(v.dtype))
 
 
 def inflate_post(n_cols: int, power: float,
@@ -47,7 +59,7 @@ def inflate_post(n_cols: int, power: float,
     """MCL inflation fused into the expansion's merge: Hadamard power,
     column normalization and post-normalization pruning."""
     return MergePostOps(n_cols=n_cols,
-                        transform=lambda v: np.power(np.abs(v), power),
+                        transform=lambda v: torch.pow(v.abs(), power),
                         col_normalize=True, threshold=threshold)
 
 

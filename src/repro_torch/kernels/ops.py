@@ -5,6 +5,7 @@ by the tensors' device alone: CUDA tensors go through the hand-written
 kernels, CPU tensors through their plain versions. The dense and hash
 kernels write compacted slabs themselves; ``extract_window_rows``, the
 reference's XLA window compaction, is the dense plain version's epilogue.
+``slab_scatter`` copies the slabs, and the ESC results, into C.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from ..core.formats import CSR, pad_axis
 from .hll import hll_merge, hll_sketch
+from .slab_scatter import row_entries, row_spans, slab_scatter
 from .spgemm_dense import (count_rows_launch_shape_on, count_rows_schedule,
                            extract_window_rows, spgemm_count_rows,
                            spgemm_dense_slab)
@@ -22,7 +24,7 @@ __all__ = ["prep_bin_structure", "gather_bin_values", "pad_b_flat",
            "extract_window_rows", "dense_bin_op",
            "hash_bin_op", "count_rows_inputs", "count_rows_op",
            "build_sketches_op",
-           "merge_estimate_op"]
+           "merge_estimate_op", "slab_scatter", "row_spans", "row_entries"]
 
 # B arrays are padded by this many slots (the reference's DMA chunk), so
 # the flat arrays the kernels read have the reference's shapes.
@@ -116,10 +118,11 @@ def count_rows_op(a: CSR, b: CSR, rows, row_lo, products,
 def prep_bin_structure(a: CSR, b: CSR, rows, ell_width: int):
     """Structure-only half of bin preparation, on A's device.
 
-    Returns ``(pos, valid, a_rows, a_starts, a_lens)``: ``pos``/``valid``
-    are the (R, ell_width) flat gather positions into A's nnz arrays (the
-    value gather each execution replays), ``a_rows``/``a_starts``/``a_lens``
-    the value-independent int32 ELL blocks — B-row ids and the B rows'
+    Returns ``(rows, pos, valid, a_rows, a_starts, a_lens)``: ``rows`` the
+    bin's rows as an int64 tensor, ``pos``/``valid`` the (R, ell_width)
+    flat gather positions into A's nnz arrays (the value gather each
+    execution replays), ``a_rows``/``a_starts``/``a_lens`` the
+    value-independent int32 ELL blocks — B-row ids and the B rows'
     starts/lengths."""
     dev = a.device
     rows = torch.as_tensor(rows, dtype=torch.int64).to(dev)
@@ -139,7 +142,7 @@ def prep_bin_structure(a: CSR, b: CSR, rows, ell_width: int):
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     a_starts = torch.where(live, b.indptr[k], zero)
     a_lens = torch.where(live, b.indptr[k + 1] - b.indptr[k], zero)
-    return pos, valid, a_rows, a_starts.int(), a_lens.int()
+    return rows, pos, valid, a_rows, a_starts.int(), a_lens.int()
 
 
 def gather_bin_values(values: torch.Tensor, pos: torch.Tensor,

@@ -63,10 +63,8 @@ ROOT = "ocean.spgemm"
 # parent's
 SUB_SPANS: Dict[str, Tuple[str, ...]] = {
     "plan.lookup": ("plan.key", "plan.probe"),
-    "exec.compact": ("exec.compact.scatter", "exec.compact.upload"),
-    "exec.overflow_fallback": ("exec.fallback.gather", "exec.fallback.esc",
-                               "exec.fallback.copyback",
-                               "exec.fallback.slab"),
+    "exec.compact": ("exec.compact.scatter",),
+    "exec.overflow_fallback": ("exec.fallback.gather", "exec.fallback.esc"),
 }
 
 # process-wide multiply ids, drawn only while a tracer is installed

@@ -354,7 +354,7 @@ class SpGEMMService:
         ``tenant`` routes the request through that tenant's cache
         namespaces (plans, sketches); outputs are identical regardless.
         ``executor`` overrides the service default for this request
-        (``"pipelined"`` overlaps the host merge with device work,
+        (``"pipelined"`` merges each launch as it completes,
         ``"serial"`` keeps the global barrier; output is identical)."""
         t0 = time.perf_counter()
         c, report = ocean_spgemm(

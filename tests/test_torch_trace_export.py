@@ -89,12 +89,12 @@ def test_traced_call_spans_and_nesting_match_reference(executor):
     names = set().union(*({n for n, _ in c} for c in got.values()))
     assert {"plan.analysis", "plan.prediction", "plan.binning",
             "exec.dispatch", "exec.collect", "exec.compact"} <= names
-    # the port's own spans: one root, the compaction's two steps in it
+    # the port's own spans: one root, the compaction's one step in it
     main = lanes(ptr, trace_export)["MainThread"]
     assert main[trace.ROOT, None] == 1
     assert main["exec.compact", trace.ROOT] == 1
     assert main["exec.compact.scatter", "exec.compact"] == 1
-    assert main["exec.compact.upload", "exec.compact"] == 1
+    assert sum(n for (_, p), n in main.items() if p == "exec.compact") == 1
 
 
 def _traced_burst(pkg, trace_mod, mats):
