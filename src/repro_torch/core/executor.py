@@ -40,6 +40,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..obs import accuracy as obs_accuracy
+from ..obs import metrics as obs_metrics
 from ..obs import trace
 from . import esc as esc_mod
 from .dispatch import (Launch, collect_in_completion_order, device_context,
@@ -673,7 +674,10 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
         wave2_overlap_seconds=plan.wave2_overlap_seconds,
         wave2_overlapped=plan.wave2_overlapped,
         estimation_accuracy=accuracy, decision=plan.decision,
-        span_seconds=state.span_seconds, device_seconds=device_s)
+        span_seconds=state.span_seconds, device_seconds=device_s,
+        pred_entries=plan.pred_entries, alloc_entries=plan.alloc_entries)
+    obs_metrics.count("plan.pred_entries", report.pred_entries)
+    obs_metrics.count("plan.alloc_entries", report.alloc_entries)
     return c, report
 
 

@@ -67,6 +67,10 @@ class OceanReport:
     # device seconds of the bin launches by kind (dense, hash, esc); only
     # measured while tracing is on
     device_seconds: Optional[Dict[str, float]] = None
+    # the plan's sizing: its predicted entries and the entries its slabs
+    # reserve (``ExecutionPlan.pred_entries``, ``.alloc_entries``)
+    pred_entries: float = 0.0
+    alloc_entries: int = 0
 
     @property
     def total_seconds(self) -> float:
@@ -274,6 +278,21 @@ class ExecutionPlan:
     pred_row_nnz: Optional[np.ndarray] = None
     decision: Optional[Dict] = None
 
+    @property
+    def pred_entries(self) -> float:
+        """Sum of the predicted row sizes the bins were sized from."""
+        return (0.0 if self.pred_row_nnz is None
+                else float(self.pred_row_nnz.sum()))
+
+    @property
+    def alloc_entries(self) -> int:
+        """Entries the plan's slabs reserve: rows x cap for a dense bin,
+        rows x (table + spill) for a hash bin, and the ESC bin's
+        products."""
+        return (sum(len(d.rows) * d.cap for d in self.dense)
+                + sum(len(h.rows) * (h.table + h.spill) for h in self.hash)
+                + (self.esc.out_cap if self.esc is not None else 0))
+
 
 # ---------------------------------------------------------------------------
 # Planner
@@ -479,14 +498,13 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             sub_indices=a.indices[src_t], src=src_t, out_cap=p_cap,
             cost=np.asarray(plan.esc_costs, np.int64), n_valid=len(rows))
     stage["binning"] = time.perf_counter() - t0
-    trace.add_span("plan.binning", t0, stage["binning"])
 
     decision = obs_accuracy.record_decision(
         workflow=wf, forced=force_workflow, feed_forward=(wf == "known"),
         er=analysis.er, sampled_cr=analysis.sampled_cr,
         nproducts_avg=analysis.nproducts_avg, cfg=cfg)
 
-    return ExecutionPlan(
+    frozen = ExecutionPlan(
         key=key, shape_a=a.shape, shape_b=b.shape, workflow=wf,
         assisted=assisted, hybrid=hybrid, cfg=cfg, products=products,
         out_lo=out_lo, dense=dense_execs, esc=esc_exec, hash=hash_execs,
@@ -500,6 +518,21 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         feed_forward=(wf == "known"),
         wave2_overlap_seconds=ov_s, wave2_overlapped=ov_pending,
         pred_row_nnz=np.asarray(pred, np.float64), decision=decision)
+    trace_binning(frozen, t0, stage["binning"])
+    return frozen
+
+
+def trace_binning(plan: ExecutionPlan, t0: float,
+                  seconds: Optional[float] = None, **attrs) -> None:
+    """Span ``plan.binning`` with the plan's sizing counters as attrs
+    (nothing is summed while tracing is off). ``seconds`` None (a replay)
+    spans the counters' reading from ``t0``, so the span is never empty."""
+    if trace.enabled():
+        pred, alloc = plan.pred_entries, plan.alloc_entries
+        if seconds is None:
+            seconds = time.perf_counter() - t0
+        trace.add_span("plan.binning", t0, seconds, pred_entries=pred,
+                       alloc_entries=alloc, **attrs)
 
 
 def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,

@@ -28,7 +28,8 @@ from .formats import CSR
 from .partition import ShardedPlan, partition_plan
 from .planner import (DEFAULT_PLAN_CACHE, ExecutionPlan, OceanReport,
                       PlanCache, build_plan, execute_plan,
-                      execute_sharded_plan, gather_rows, structure_key)
+                      execute_sharded_plan, gather_rows, structure_key,
+                      trace_binning)
 
 __all__ = ["OceanReport", "ocean_spgemm", "ocean_spgemm_many",
            "spgemm_reference", "gather_rows", "warm_plan"]
@@ -159,6 +160,8 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
         if cached is not None:
             stage = {"plan_lookup": lookup_s, "analysis": 0.0,
                      "prediction": 0.0, "binning": 0.0}
+            trace_binning(cached.plan if isinstance(cached, ShardedPlan)
+                          else cached, time.perf_counter(), replay=True)
             run = execute_plan if devs is None else execute_sharded_plan
             return run(cached, a, b, stage=stage, cache_hit=True,
                        executor=executor, post=post, span_seconds=spans)

@@ -21,7 +21,7 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "install_registry", "active_registry", "count_launch",
+           "install_registry", "active_registry", "count", "count_launch",
            "launch_counts", "launched", "LAUNCHES"]
 
 # counter of the hand-written kernels' launches, labelled ``kernel``
@@ -261,15 +261,21 @@ def active_registry() -> Optional[MetricsRegistry]:
     return _registry
 
 
-def count_launch(kernel: str) -> None:
-    """Count one launch of a hand-written kernel into
-    ``kernel.launches{kernel=...}`` of the installed registry, under its
-    lock (several threads launch); one global read when none is."""
+def count(name: str, n=1, **labels) -> None:
+    """Add ``n`` to counter ``name{labels}`` of the installed registry,
+    under its lock (several threads multiply); one global read when none
+    is."""
     r = _registry
     if r is not None:
-        c = r.counter(LAUNCHES, kernel=kernel)
+        c = r.counter(name, **labels)
         with r._lock:
-            c.value += 1
+            c.value += n
+
+
+def count_launch(kernel: str) -> None:
+    """Count one launch of a hand-written kernel into
+    ``kernel.launches{kernel=...}`` of the installed registry."""
+    count(LAUNCHES, kernel=kernel)
 
 
 def launch_counts(registry: Optional[MetricsRegistry] = None
