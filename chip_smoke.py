@@ -164,7 +164,9 @@ Phases, each of which raises on failure:
    slabs, the ESC bin's and the overflow fallback's CSRs, captured as the
    merge hands them over), bit for bit equal to its plain version and to
    the multiply's C, timed beside the plain version and one
-   device-to-device copy of C, with its bound in bytes;
+   device-to-device copy of C, with its bound in bytes; and the plan key's
+   fingerprint kernel on the benchmark's FEM, R-MAT and R·AP patterns, bit
+   for bit equal to its plain version, timed beside it and the whole key;
 4. the small suite (``make_suite(1)``) through ``ocean_spgemm`` on the card
    against scipy, which also drives the ESC and upper-bound paths; Cohen's
    min-rank estimator on banded's A on the card, its first rows held to
@@ -312,7 +314,79 @@ def library_product(a, runs: int):
 COUNTED = {"dense_window": "dense_window", "dense_longrow": "dense_longrow",
            "hash": "hash", "hll_merge": "hll_merge",
            "hll_sketch": "hll_sketch", "count": "count_rows",
-           "slab_scatter": "slab_scatter"}
+           "slab_scatter": "slab_scatter",
+           "pattern_fingerprint": "pattern_fingerprint"}
+
+
+# the fingerprint's integer operations an element, in 32-bit units: four
+# MurmurHash3 finalisers (two 64-bit multiplies of three multiply-adds,
+# three xor-shifts by 33 of two operations) and, for each of the two lanes,
+# the xor with the value, the salt's add and the sum's (2 each)
+FINGERPRINT_OPS = 4 * (2 * 3 + 3 * 2) + 2 * 3 * 2
+FINGERPRINT_CONFIGS = ("fem-q1-elasticity", "graph500-rmat-s15",
+                       "fem-q1-gamg-rap")
+
+
+def fingerprint_rows(dev) -> list:
+    """The plan key's fingerprint kernel on the benchmark's FEM, R-MAT and
+    R·AP patterns (``perfbench/configs``, int32 as the benchmark hands them
+    over): equal to its plain version bit for bit, timed (the launch alone
+    and the call with its 16-byte read) beside the plain version and the
+    whole ``planner.structure_key``, with its bounds in bytes and in int32
+    operations. One row a configuration."""
+    import torch
+    from perfbench import manifest
+    from repro_torch.core import formats, planner
+    from repro_torch.core.analysis import OceanConfig
+    from repro_torch.kernels import pattern_fingerprint as pf
+    rows = []
+    for name in FINGERPRINT_CONFIGS:
+        cfg = manifest.config(manifest.load(), name)
+        ops_ = manifest.module("gen", cfg["generator"]).make(
+            cfg, SCATTER_SEED, 1, torch.device(dev))
+        mats = [formats.CSR(m.indptr.int(), m.indices.int(), m.values[0],
+                            tuple(m.shape), int(m.indices.shape[0]))
+                for m in ((ops_.a,) if ops_.b is None else (ops_.a, ops_.b))]
+        del ops_
+        a, b = mats[0], mats[-1]
+        arrays = planner.pattern_arrays(a, b)
+        lanes = pf.pattern_fingerprint_cuda(arrays)
+        plain = pf.pattern_fingerprint_plain(arrays, chunk=1 << 24)
+        if lanes != plain:
+            raise AssertionError(f"pattern_fingerprint {name}: kernel "
+                                 f"{lanes} != plain {plain}")
+        out = torch.empty(pf.LANES, dtype=torch.int64, device=dev)
+        ms = time_cuda(lambda: pf.launch(arrays, out), KERNEL_RUNS)
+        call_ms = time_cuda(lambda: pf.pattern_fingerprint_cuda(arrays),
+                            KERNEL_RUNS)
+        plain_ms = time_cuda(
+            lambda: pf.pattern_fingerprint_plain(arrays, chunk=1 << 24), 3)
+        key_s = []
+        for _ in range(KERNEL_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            planner.structure_key(a, b, OceanConfig(), None, True, True)
+            key_s.append(time.perf_counter() - t0)
+        elements = sum(int(x.numel()) for x in arrays)
+        by = float(sum(x.numel() * x.element_size() for x in arrays))
+        bytes_ms = by / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = bound(by, float(FINGERPRINT_OPS * elements),
+                           INT32_OPS_PER_S)
+        log(f"pattern_fingerprint {name}: {elements} elements "
+            f"({by / 1e6:.1f} MB); kernel = plain bit for bit; launch "
+            f"{ms:.4f} ms, call {call_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"structure_key {1e3 * float(np.median(key_s)):.3f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}; bytes {bytes_ms:.4f} ms)")
+        rows.append({"bin": name, "max_abs_err": 0.0, "ms": ms,
+                     "call_ms": call_ms, "plain_ms": plain_ms,
+                     "key_ms": 1e3 * float(np.median(key_s)),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes_bound_ms": bytes_ms,
+                     "shape": {"elements": elements, "bytes": by,
+                               "b_is_a": len(mats) == 1}})
+        del mats, a, b, arrays
+        torch.cuda.empty_cache()
+    return rows
 
 
 def scatters_wanted(shards, rep) -> int:
@@ -1722,7 +1796,9 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
             "count": sum(int(r.workflow == "symbolic"
                              and not r.plan_cache_hit) for r in (rep1, rep2)),
             "slab_scatter": sum(scatters_wanted([plan], r)
-                                for r in (rep1, rep2))}
+                                for r in (rep1, rep2)),
+            # the service keys both calls through its plan cache
+            "pattern_fingerprint": 2}
     if launched != want or not sum(launched.values()):
         raise AssertionError(f"MoE demo: launches {launched}, want {want} "
                              f"(bins {rep1.bins}, {tuner} by the hash tuner)")
@@ -3072,6 +3148,15 @@ def main() -> int:
             raise AssertionError(f"{name}: count launches {got}, want {want}"
                                  " (one per cold symbolic prediction)")
         log(f"{name}: count kernel launches per call {json.dumps(got)}")
+    # the plan key's fingerprint: one launch a keyed call, cold or warm
+    for name in results:
+        got = {call: call_counts[name, call]["pattern_fingerprint"]
+               for call in ("cold", "warm")}
+        if got != {"cold": 1, "warm": 1}:
+            raise AssertionError(f"{name}: pattern_fingerprint launches "
+                                 f"{got}, want 1 a keyed call")
+    log("pattern_fingerprint: one launch a keyed call, cold and warm, on "
+        + ", ".join(results))
     # hll_merge: one launch per cold call's sampled CR and one per cold
     # estimation prediction, none warm
     for name, outs in results.items():
@@ -3882,6 +3967,16 @@ def main() -> int:
         "launches_by_path": by_path["slab_scatter"],
         **{k: v for k, v in sc_fem.items() if k != "bin"},
         "matrix": sc_fem["bin"], "also": [sc_rmat]})
+    fp = fingerprint_rows(dev)
+    kernels.append({
+        "name": "pattern_fingerprint", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pattern_fingerprint.cu",
+        "replaces": "none (the reference hashes both patterns on the host "
+                    "with blake2b: src/repro/core/planner.py:304)",
+        "launches": counts["pattern_fingerprint"],
+        "launches_by_path": by_path["pattern_fingerprint"],
+        **{k: v for k, v in fp[0].items() if k != "bin"},
+        "matrix": fp[0]["bin"], "also": fp[1:]})
     done()
 
     # ---------------- 4. small suite on the card ----------------

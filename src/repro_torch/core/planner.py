@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.pattern_fingerprint import path as fingerprint_path
+from ..kernels.pattern_fingerprint import pattern_fingerprint
 from ..obs import accuracy as obs_accuracy
 from ..obs import trace
 from . import esc as esc_mod
@@ -298,20 +300,36 @@ class ExecutionPlan:
 # Planner
 # ---------------------------------------------------------------------------
 
+def pattern_arrays(a: CSR, b: CSR) -> List[torch.Tensor]:
+    """The arrays the plan key fingerprints: A's indptr and indices[:nnz],
+    then B's."""
+    return [a.indptr, a.indices[: a.nnz], b.indptr, b.indices[: b.nnz]]
+
+
+def key_attrs(a: CSR, b: CSR) -> Dict[str, object]:
+    """The ``plan.key`` span's attrs: the pattern bytes the key
+    fingerprints and the fingerprint's path (``cuda`` or ``plain``)."""
+    return {"bytes": sum(x.numel() * x.element_size()
+                         for x in pattern_arrays(a, b)),
+            "path": fingerprint_path(a.device)}
+
+
 def structure_key(a: CSR, b: CSR, cfg: OceanConfig,
                   force_workflow: Optional[str], assisted: bool,
                   hybrid: bool,
                   known_sizes: Optional[np.ndarray] = None) -> str:
-    """Cache key: hash of both sparsity patterns (int32 bytes) + every
-    planning knob + the device. Values are excluded: plans are
-    structure-only."""
+    """Cache key: the device fingerprint of both sparsity patterns (every
+    index of A's and B's indptr and indices[:nnz], on their device; 16
+    bytes come back), hashed on the host with both shapes and nnz, the
+    index dtypes, every planning knob and the device. Values are excluded:
+    plans are structure-only."""
+    arrays = pattern_arrays(a, b)
     h = hashlib.blake2b(digest_size=16)
-    for m in (a, b):
-        h.update(np.ascontiguousarray(host(m.indptr)).tobytes())
-        h.update(np.ascontiguousarray(host(m.indices[: m.nnz])).tobytes())
-        h.update(repr(m.shape).encode())
-    h.update(repr((cfg, force_workflow, assisted, hybrid,
-                   str(a.device))).encode())
+    for lane in pattern_fingerprint(arrays):
+        h.update(lane.to_bytes(8, "little"))
+    h.update(repr((a.shape, a.nnz, b.shape, b.nnz,
+                   [str(x.dtype) for x in arrays], cfg, force_workflow,
+                   assisted, hybrid, str(a.device))).encode())
     if known_sizes is not None:
         h.update(b"|known|")
         h.update(np.ascontiguousarray(

@@ -28,8 +28,8 @@ from .formats import CSR
 from .partition import ShardedPlan, partition_plan
 from .planner import (DEFAULT_PLAN_CACHE, ExecutionPlan, OceanReport,
                       PlanCache, build_plan, execute_plan,
-                      execute_sharded_plan, gather_rows, structure_key,
-                      trace_binning)
+                      execute_sharded_plan, gather_rows, key_attrs,
+                      structure_key, trace_binning)
 
 __all__ = ["OceanReport", "ocean_spgemm", "ocean_spgemm_many",
            "spgemm_reference", "gather_rows", "warm_plan"]
@@ -149,9 +149,11 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     if cache_obj is not None:
         spans: Dict[str, float] = {}
         with trace.timed("plan.lookup", spans) as lookup:
-            with trace.timed("plan.key", spans):
+            with trace.timed("plan.key", spans) as key_span:
                 key = structure_key(a, b, cfg, force_workflow, assisted,
                                     hybrid, known_sizes=known_sizes)
+                if trace.enabled():
+                    key_span.set(**key_attrs(a, b))
             lkey = key if devs is None else key + "|" + topology_key(devs)
             with trace.timed("plan.probe", spans):
                 cached = cache_obj.lookup(lkey)

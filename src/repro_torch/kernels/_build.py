@@ -47,6 +47,7 @@ SIGNATURES = {
     "ocean_count_rows": (P, P, P, P, P, P, P, I, I, I, I, P),
     "ocean_count_rows_blocks_per_sm": (I, P),
     "ocean_slab_scatter": (P, P, P, P, LL, P, P, P, P, I, P),
+    "ocean_pattern_fingerprint": (P, LL, I) * 4 + (P, I, P),
 }
 
 _lock = threading.Lock()
