@@ -43,8 +43,8 @@ Phases, each of which raises on failure:
    ``SpGEMMPool`` (2 workers, micro-batches of up to 8, the plan warmer
    run over the queue before the workers start), every kernel's launch
    count set to 0 just before the burst and read just after; each C
-   bit-identical to the same product served alone (uncached, serial
-   executor), each distinct product as scipy, 9 plans warmed, 12 plan
+   bit-identical to the same product served alone (uncached), each
+   distinct product as scipy, 9 plans warmed, 12 plan
    hits, the dense and hash kernels once a dense or hash bin and
    ``hll_merge`` as the warmed plans need; a small pool sheds 8 of the 12; k-hop chains (3
    hops, the phase-2c triangle graph) through ``SpGEMMService.run_chain``
@@ -410,17 +410,6 @@ def read_counts() -> dict:
     from repro_torch.obs import metrics
     got = metrics.launch_counts()
     return {k: got.get(label, 0) for k, label in COUNTED.items()}
-
-
-def tuned_load_factors(tuning, dev) -> dict:
-    """The load factor the hash tuner chose for each rung it has timed in
-    this process (rungs not timed are left out)."""
-    out = {}
-    for rung in [32 * 2 ** k for k in range(8)]:
-        hit = tuning.DEFAULT_TUNING_CACHE.lookup(tuning.tuning_key(rung, dev))
-        if hit is not None:
-            out[rung] = hit.load_factor
-    return out
 
 
 def log_call(label, rep, wall, launched, peak_gib=None) -> None:
@@ -897,17 +886,17 @@ def serving_phase(args, dev, adj, kd, kh, kl, path_counts):
     log(f"structure_hash(B): {hash_s:.4f} s (host copy of the pattern; the "
         "service takes it for the sketch bucket on every request)")
 
-    # each distinct product served alone, uncached, serial executor: what
-    # every pooled C must equal bit for bit
+    # each distinct product served alone, uncached: what every pooled C
+    # must equal bit for bit
     refs, ref_walls = [], []
     b_sp = to_scipy(b)
     for name, a in zip(names, pats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        c, rep = workflow.ocean_spgemm(a, b, cache=False, executor="serial")
+        c, rep = workflow.ocean_spgemm(a, b, cache=False)
         torch.cuda.synchronize()
         ref_walls.append(time.perf_counter() - t0)
-        log_call(f"serial {name} @ B", rep, ref_walls[-1], None)
+        log_call(f"alone {name} @ B", rep, ref_walls[-1], None)
         t0 = time.perf_counter()
         err = check_against_scipy(c, to_scipy(a), f"serving {name}", b_sp)
         log(f"serving {name}: C matches scipy (max abs diff {err:.3g}, check"
@@ -1758,7 +1747,7 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
     the second time), C against scipy. Returns the fields of the demo's
     entry in the ``{"lm": ...}`` line and ``(D^T, D, plan)`` for phase 3."""
     import torch
-    from repro_torch.core import planner, tuning
+    from repro_torch.core import planner
     from repro_torch.tools import moe_dispatch
     logits = moe_dispatch.router_logits(32_768, 64)
     plans = moe_dispatch.plan_capacity(logits, 8)
@@ -1770,7 +1759,6 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
         res = moe_dispatch.run_dispatch(params.layers[0].ff, cfg, x,
                                         sampled.capacity_factor)
     torch.cuda.synchronize()
-    tuned_before = len(tuning.DEFAULT_TUNING_CACHE)
     reset_counts()
     c1, rep1, c2, rep2, service, d, dt = moe_dispatch.co_routing(logits, 8,
                                                                  dev)
@@ -1783,15 +1771,11 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
         dt, d, service.cfg, None, True, True))
     # both calls run the plan's bins, one launch a bin; the cold call's
     # planning merges once a sampled CR and once an estimation prediction,
-    # sketching D once for them; the hash tuner times each rung it has not
-    # seen (3 launches a load-factor candidate): none when earlier phases
-    # have tuned every rung the plan asks for
-    tuner = 3 * len(tuning.LOAD_FACTOR_CANDIDATES) * (
-        len(tuning.DEFAULT_TUNING_CACHE) - tuned_before)
+    # sketching D once for them
     merges = merges_wanted(rep1) + merges_wanted(rep2)
     want = {"dense_window": 2 * sum(not be.is_longrow for be in plan.dense),
             "dense_longrow": 2 * sum(be.is_longrow for be in plan.dense),
-            "hash": 2 * len(plan.hash) + tuner, "hll_merge": merges,
+            "hash": 2 * len(plan.hash), "hll_merge": merges,
             "hll_sketch": int(merges > 0),
             "count": sum(int(r.workflow == "symbolic"
                              and not r.plan_cache_hit) for r in (rep1, rep2)),
@@ -1801,7 +1785,7 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
             "pattern_fingerprint": 2}
     if launched != want or not sum(launched.values()):
         raise AssertionError(f"MoE demo: launches {launched}, want {want} "
-                             f"(bins {rep1.bins}, {tuner} by the hash tuner)")
+                             f"(bins {rep1.bins})")
     d_sp = to_scipy(d)
     err = check_against_scipy(c1, d_sp.T.tocsr(), "co-routing C", d_sp)
     log(f"MoE demo: cf exact {plans['exact'].capacity_factor:.3f} "
@@ -1812,7 +1796,7 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
         f"{res['scatter_vs_einsum']:.3g}; C (64x64, nnz {c1.nnz}) = scipy "
         f"(max abs diff {err:.3g}), workflow {rep1.workflow} bins "
         f"{json.dumps(rep1.bins)}, launches {json.dumps(launched)} as "
-        f"wanted ({tuner} by the hash tuner); second call plan hit, setup "
+        "wanted; second call plan hit, setup "
         f"{rep1.setup_seconds * 1e3:.1f} -> {rep2.setup_seconds * 1e3:.1f} "
         "ms")
     line = {"cf_exact": plans["exact"].capacity_factor,
@@ -1822,7 +1806,7 @@ def lm_moe_demo(cfg, params, dev, kd, kh, kl, path_counts):
             "drops": res["drops"],
             "scatter_vs_einsum_max_abs": res["scatter_vs_einsum"],
             "c_max_abs_vs_scipy": err, "bins": rep1.bins,
-            "launches": launched, "hash_tuner_launches": tuner,
+            "launches": launched,
             "plan_cache_hit": rep2.plan_cache_hit,
             "setup_ms": [rep1.setup_seconds * 1e3,
                          rep2.setup_seconds * 1e3]}
@@ -3021,7 +3005,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(REPO, "src"))
     import scipy.sparse as sp
     from repro_torch import graph
-    from repro_torch.core import analysis, formats, planner, tuning, workflow
+    from repro_torch.core import analysis, formats, planner, workflow
     from repro_torch.core import hll as chll
     from repro_torch.core.analysis import OceanConfig
     from repro_torch.kernels import _build, ops
@@ -3173,9 +3157,6 @@ def main() -> int:
     for name, a in mats:
         log(f"{name}: hash bins (table: rows) " + json.dumps(
             {hb.table: len(hb.rows) for hb in plan_of(name, a).hash}))
-    log("tuned hash load factor by rung (timed at this process's first cold "
-        f"plan; the reference rung {tuning.REFERENCE_RUNG} sizes the tables): "
-        + json.dumps(tuned_load_factors(tuning, dev)))
     wf = {name: outs[0][1].workflow for name, outs in results.items()}
     if wf["banded"] != "estimation":
         raise AssertionError(f"banded took {wf['banded']}, not estimation")
@@ -3982,9 +3963,8 @@ def main() -> int:
     # ---------------- 4. small suite on the card ----------------
     done = phase("4. make_suite(1) through ocean_spgemm on the card")
     for name, a in formats.make_suite(1, device=dev):
-        for ex in ("serial", "pipelined", "threaded"):
-            c, rep = workflow.ocean_spgemm(a, a, cache=False, executor=ex)
-            err = check_against_scipy(c, to_scipy(a), f"suite {name}")
+        c, rep = workflow.ocean_spgemm(a, a, cache=False)
+        err = check_against_scipy(c, to_scipy(a), f"suite {name}")
         log(f"suite {name}: {rep.workflow} bins {json.dumps(rep.bins)} "
             f"max abs diff {err:.3g}")
     cohen_line = cohen_check(a_band, chll)

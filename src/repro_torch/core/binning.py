@@ -41,8 +41,8 @@ ESC_THRESHOLD = 64
 HASH_MAX_TABLE = 2048
 HASH_MIN_TABLE = 32
 HASH_ADVANTAGE = 4
-# Default primary-table load factor; ``core.tuning`` measures and
-# overrides this per rung when the autotuner is consulted.
+# Primary-table load factor of every hash rung (``core.tuning``'s fixed
+# ``DEFAULT_TUNING``).
 HASH_LOAD_FACTOR = 0.75
 
 
@@ -86,7 +86,7 @@ class HashBin:
 
     ``spill`` is a pure function of ``table`` (never of the rows that
     happen to share a launch), and ``tile`` is a bin-level property too
-    (the autotuned row tile the kernel probes per grid step — shard
+    (the fixed row tile the kernel probes per grid step — shard
     slices inherit it, never re-derive it from their own row counts), so
     every shard slice of the bin replays the same kernel shapes — the
     invariant bit-identical sharding needs.
@@ -96,7 +96,7 @@ class HashBin:
     rows: np.ndarray          # row ids (original matrix row indices)
     ell_width: int            # padded A-row nnz width for this bin
     cost: np.ndarray          # per-row estimated product counts
-    tile: int = 8             # rows per kernel grid step (autotuned)
+    tile: int = 8             # rows per kernel grid step (fixed)
 
 
 def hash_spill_of(table: int) -> int:
@@ -159,9 +159,9 @@ def plan_bins(pred_nnz: np.ndarray, products: np.ndarray,
                 the ESC and dense thresholds). Disabled in the V1/V2
                 ablations alongside ESC.
     load_factor: primary hash tables are sized ``pow2(alloc/load_factor)``
-                (``core.tuning`` supplies the measured value per rung).
+                (the planner passes ``core.tuning.DEFAULT_TUNING``'s).
     tile_rows:  rows the hash kernel probes vectorized per grid step
-                (``core.tuning`` again); stamped onto every
+                (``core.tuning.DEFAULT_TUNING`` again); stamped onto every
                 :class:`HashBin` so shard slices share the bin's tile.
     """
     m = len(pred_nnz)

@@ -7,9 +7,10 @@ PyTorch port of ``repro.core.executor``:
   (``core.dispatch``);
 * **collect** takes launches in completion order (per-launch CUDA events,
   no global barrier);
-* **merge** runs each slab's overflow scan and post-ops on the merge's
-  device, A's; the exact-ESC overflow fallback and the compaction wait
-  for the set.
+* **merge** enqueues each slab's overflow scan and post-ops on the merge's
+  device, A's, as its launch is collected, while later launches are still
+  in flight; the exact-ESC overflow fallback and the compaction wait for
+  the set.
 
 The merge stays on A's device: no slab goes to the host and C is not
 uploaded. Compaction sums every source's row counts into C's ``indptr``,
@@ -17,21 +18,17 @@ allocates C once and copies each source (a bin's slab, an ESC result)
 into it with one ``kernels.slab_scatter`` launch. The host reads only the
 slabs' counts of overflowed rows (once, for all slabs, after collection),
 the overflowed rows themselves, C's size and one m-entry copy of the row
-counts for the report. Slabs are row-disjoint and every kernel's per-row
-output is independent of the other rows of its launch, so the ``serial``,
-``pipelined`` and ``threaded`` collect modes give the same CSR bit for
-bit, fused :class:`MergePostOps` included (column-sum partials fold in
-dispatch order). A device-partitioned plan (``core.partition.ShardedPlan``)
-runs through the same pipeline: its shards' slabs are row subsets of the
-bins, moved to A's device, so :func:`execute_sharded_plan` gives the
+counts for the report. Slabs are row-disjoint and compaction takes them in
+dispatch order, so the order in which launches complete does not change C,
+fused :class:`MergePostOps` included (column-sum partials fold in dispatch
+order). A device-partitioned plan (``core.partition.ShardedPlan``) runs
+through the same pipeline: its shards' slabs are row subsets of the bins,
+moved to A's device, so :func:`execute_sharded_plan` gives the
 single-device C bit for bit.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import queue
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -48,12 +45,6 @@ from .dispatch import (Launch, collect_in_completion_order, device_context,
 from .formats import CSR, PAD_COL
 from .planner import (DenseBinExec, EscExec, ExecutionPlan, HashBinExec,
                       OceanReport, gather_rows)
-
-SERIAL = "serial"
-PIPELINED = "pipelined"
-THREADED = "threaded"
-EXECUTORS = (PIPELINED, THREADED, SERIAL)
-
 
 class _Slab:
     """One source of C's rows, on the merge's device: ``rows`` (R,) int64,
@@ -487,42 +478,11 @@ def _run_overflow_fallback(state: _MergeState, products: np.ndarray,
     return len(rows)
 
 
-# ---------------------------------------------------------------------------
-# The collect policies
-# ---------------------------------------------------------------------------
-
-def _collect_serial(items, plan, a, b, stage, dispatch_s, state):
-    """One global barrier, then merge every slab."""
-    t0 = time.perf_counter()
-    slabs = [(it, _materialize(it, a.device)) for it in items]
-    collect_s = time.perf_counter() - t0
-    trace.add_span("exec.collect", t0, collect_s)
-    t0 = time.perf_counter()
-    for it, slab in slabs:
-        state.add(it, slab)
-    merge_s = time.perf_counter() - t0
-    c, n_overflow = _finish_merge(state, plan, a, b, stage, dispatch_s,
-                                  collect_s, merge_s)
-    return c, n_overflow, 0.0
-
-
-def _finish_merge(state, plan, a, b, stage, dispatch_s, collect_s, merge_s):
-    """The merge's tail, after every slab was added: the overflow fallback
-    and the compaction (stage keys dispatch, collect, merge)."""
-    t0 = time.perf_counter()
-    n_overflow = _run_overflow_fallback(state, plan.products, a, b)
-    with trace.timed("exec.compact", state.span_seconds):
-        c = _compact_slabs(state, (a.m, b.n), a.values.dtype, a.device)
-    t2 = time.perf_counter()
-    stage["dispatch"] = dispatch_s
-    stage["collect"] = collect_s
-    stage["merge"] = merge_s + (t2 - t0)
-    return c, n_overflow
-
-
-def _collect_pipelined(items, plan, a, b, stage, dispatch_s, state):
+def _collect(items, plan, a, b, stage, dispatch_s, state):
     """Launches are taken in completion order and each one's overflow scan
-    and post-ops are enqueued while later launches are still in flight."""
+    and post-ops are enqueued while later launches are still in flight;
+    then the merge's tail, the overflow fallback and the compaction (stage
+    keys dispatch, collect, merge)."""
     collect_s = merge_s = overlap_s = 0.0
     n_left = len(items)
     traced = trace.enabled()
@@ -544,89 +504,25 @@ def _collect_pipelined(items, plan, a, b, stage, dispatch_s, state):
         merge_s += dt
         if n_left:
             overlap_s += dt
-    c, n_overflow = _finish_merge(state, plan, a, b, stage, dispatch_s,
-                                  collect_s, merge_s)
+    t0 = time.perf_counter()
+    n_overflow = _run_overflow_fallback(state, plan.products, a, b)
+    with trace.timed("exec.compact", state.span_seconds):
+        c = _compact_slabs(state, (a.m, b.n), a.values.dtype, a.device)
+    stage["dispatch"] = dispatch_s
+    stage["collect"] = collect_s
+    stage["merge"] = merge_s + (time.perf_counter() - t0)
     return c, n_overflow, overlap_s
-
-
-def _collect_threaded(items, plan, a, b, stage, dispatch_s, state):
-    """Collect on this thread, merge on a dedicated worker thread (the sole
-    mutator of the merge state, on this thread's stream), so merging
-    proceeds while the collect loop waits on a launch."""
-    slabs: "queue.Queue[Optional[Tuple[Launch, _Slab]]]" = queue.Queue()
-    spans: List[Tuple[float, float]] = []
-    errors: List[BaseException] = []
-    worker_tid: List[int] = []
-    stream = (torch.cuda.current_stream(a.device)
-              if a.device.type == "cuda" else None)
-
-    def worker():
-        worker_tid.append(threading.get_ident())
-        while True:
-            item = slabs.get()
-            if item is None:
-                return
-            it, slab = item
-            t0 = time.perf_counter()
-            try:
-                with (torch.cuda.stream(stream) if stream is not None
-                      else contextlib.nullcontext()):
-                    state.add(it, slab)
-            except BaseException as e:  # re-raised on the main thread
-                errors.append(e)
-                return
-            spans.append((t0, time.perf_counter() - t0))
-
-    th = threading.Thread(target=worker, name="ocean-merge-worker",
-                          daemon=True)
-    th.start()
-    collect_s = 0.0
-    traced = trace.enabled()
-    try:
-        for it in collect_in_completion_order(items):
-            t0 = time.perf_counter()
-            slab = _materialize(it, a.device)
-            dt_c = time.perf_counter() - t0
-            collect_s += dt_c
-            if traced:
-                trace.add_span("exec.collect", t0, dt_c, order=it.order,
-                               kind=it.tag[0])
-            slabs.put((it, slab))
-    finally:
-        collect_end = time.perf_counter()
-        slabs.put(None)
-        th.join()
-    if errors:
-        raise errors[0]
-    if traced and worker_tid:
-        mid = trace.current_mid()
-        for w0, wdt in spans:
-            trace.add_span("exec.merge_worker", w0, wdt,
-                           tid=worker_tid[0], thread="ocean-merge-worker",
-                           mid=mid)
-    merge_s = sum(dt for _, dt in spans)
-    overlap_s = sum(min(max(collect_end - t0, 0.0), dt) for t0, dt in spans)
-    c, n_overflow = _finish_merge(state, plan, a, b, stage, dispatch_s,
-                                  collect_s, merge_s)
-    return c, n_overflow, overlap_s
-
-
-_COLLECT_OF = {PIPELINED: _collect_pipelined, THREADED: _collect_threaded,
-               SERIAL: _collect_serial}
 
 
 def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
              *, stage: Optional[Dict[str, float]], cache_hit: bool,
-             executor: str, n_shards: int, shard_imbalance: float,
+             n_shards: int, shard_imbalance: float,
              post: Optional[MergePostOps],
              span_seconds: Optional[Dict[str, float]]
              ) -> Tuple[CSR, OceanReport]:
     """The pipeline behind :func:`execute_plan` and
     :func:`execute_sharded_plan`; ``span_seconds`` (the report's, which
     may hold the plan lookup's steps) collects the merge's timed steps."""
-    if executor not in EXECUTORS:
-        raise ValueError(f"unknown executor {executor!r}; expected one of "
-                         f"{EXECUTORS}")
     if a.shape != plan.shape_a or b.shape != plan.shape_b:
         raise ValueError(
             f"plan built for {plan.shape_a} @ {plan.shape_b}, "
@@ -645,10 +541,9 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
     trace.add_span("exec.dispatch", t0, dispatch_s, launches=len(items))
 
     state = _MergeState(a.m, a.device, post, span_seconds)
-    c, n_overflow, overlap_s = _COLLECT_OF[executor](
-        items, plan, a, b, stage, dispatch_s, state)
+    c, n_overflow, overlap_s = _collect(items, plan, a, b, stage,
+                                        dispatch_s, state)
     device_s = _record_device_spans(items) if trace.enabled() else None
-    overlap_s = min(max(overlap_s, 0.0), stage.get("merge", 0.0))
     causes = state.overflow_causes
 
     # estimation-accuracy telemetry on the raw product's row nnz (the merge
@@ -667,8 +562,7 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
         stage_seconds=stage, bins=dict(plan.bins_describe),
         overflow_rows=n_overflow, nnz_out=c.nnz, plan_cache_hit=cache_hit,
         feed_forward=plan.feed_forward, n_shards=n_shards,
-        shard_imbalance=shard_imbalance, executor=executor,
-        overlap_seconds=overlap_s, analysis_shards=plan.analysis_shards,
+        shard_imbalance=shard_imbalance, overlap_seconds=overlap_s, analysis_shards=plan.analysis_shards,
         analysis_shard_seconds=plan.analysis_shard_seconds,
         raw_row_nnz=exact_nnz if state.raw_counts is not None else None,
         wave2_overlap_seconds=plan.wave2_overlap_seconds,
@@ -684,7 +578,6 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
 def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
                  stage: Optional[Dict[str, float]] = None,
                  cache_hit: bool = False,
-                 executor: str = PIPELINED,
                  post: Optional[MergePostOps] = None,
                  span_seconds: Optional[Dict[str, float]] = None,
                  ) -> Tuple[CSR, OceanReport]:
@@ -694,7 +587,7 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
     plans are post-independent, so one plan serves masked and unmasked
     calls alike."""
     return _execute(plan, _shards_of_plan(plan), a, b, stage=stage,
-                    cache_hit=cache_hit, executor=executor, n_shards=1,
+                    cache_hit=cache_hit, n_shards=1,
                     shard_imbalance=1.0, post=post,
                     span_seconds=span_seconds)
 
@@ -702,7 +595,6 @@ def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
 def execute_sharded_plan(splan, a: CSR, b: CSR, *,
                          stage: Optional[Dict[str, float]] = None,
                          cache_hit: bool = False,
-                         executor: str = PIPELINED,
                          post: Optional[MergePostOps] = None,
                          span_seconds: Optional[Dict[str, float]] = None,
                          ) -> Tuple[CSR, OceanReport]:
@@ -717,7 +609,6 @@ def execute_sharded_plan(splan, a: CSR, b: CSR, *,
                          hash=sh.hash)
               for sh in splan.shards]
     return _execute(splan.plan, shards, a, b, stage=stage,
-                    cache_hit=cache_hit, executor=executor,
-                    n_shards=splan.n_shards,
+                    cache_hit=cache_hit, n_shards=splan.n_shards,
                     shard_imbalance=splan.imbalance, post=post,
                     span_seconds=span_seconds)

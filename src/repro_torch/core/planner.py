@@ -50,7 +50,6 @@ class OceanReport:
     feed_forward: bool = False
     n_shards: int = 1
     shard_imbalance: float = 1.0
-    executor: str = "serial"
     # host-merge work done before the final slab was collected
     overlap_seconds: float = 0.0
     analysis_shards: int = 1
@@ -214,7 +213,7 @@ class DenseBinExec:
 @dataclasses.dataclass
 class HashBinExec:
     """One hash-accumulator bin with its structure-only kernel inputs.
-    ``f_chunk``/``tile`` are the tuned reference knobs, carried and
+    ``f_chunk``/``tile`` are the reference's fixed knobs, carried and
     ignored by the CUDA kernel."""
     table: int
     spill: int
@@ -447,15 +446,13 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     assisted_cr = analysis.conservative_cr if (assisted and wf == "upper_bound"
                                                and analysis.cr_mean) else None
     hash_enabled = hybrid and cfg.hash_rung
-    ref_tuned = (tuning_mod.hash_tuning_for(tuning_mod.REFERENCE_RUNG,
-                                            device=dev)
-                 if hash_enabled else tuning_mod.DEFAULT_TUNING)
+    hash_cfg = tuning_mod.DEFAULT_TUNING
     plan = plan_bins(pred, products, out_lo, out_hi, a_row_nnz, b.n,
                      expansion=cfg.expansion_for(analysis.m_regs),
                      workflow=wf, esc_enabled=hybrid,
                      assisted_cr=assisted_cr, hash_enabled=hash_enabled,
-                     load_factor=ref_tuned.load_factor,
-                     tile_rows=ref_tuned.tile_rows)
+                     load_factor=hash_cfg.load_factor,
+                     tile_rows=hash_cfg.tile_rows)
     if not hybrid:
         # V1/V2: long rows fall back to the global ESC pass instead of the
         # column-tiled kernel (the paper's 'nonadaptive global kernel')
@@ -489,14 +486,13 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     for hash_id, hb in enumerate(plan.hash_bins):
         out_rows, pos, valid, a_rows, a_starts, a_lens = \
             kops.prep_bin_structure(a, b, hb.rows, hb.ell_width)
-        tuned = tuning_mod.hash_tuning_for(hb.table, device=dev)
         hash_execs.append(HashBinExec(
             table=hb.table, spill=hb.spill, rows=hb.rows, out_rows=out_rows,
             ell_width=hb.ell_width, pos=pos, valid=valid, a_rows=a_rows,
             a_starts=a_starts, a_lens=a_lens,
             cost=np.asarray(hb.cost, np.int64),
             bin_id=len(dense_execs) + hash_id, n_valid=len(hb.rows),
-            f_chunk=tuned.f_chunk, tile=tuned.tile_rows))
+            f_chunk=hash_cfg.f_chunk, tile=hash_cfg.tile_rows))
 
     esc_exec = None
     if len(plan.esc_rows):
@@ -556,21 +552,19 @@ def trace_binning(plan: ExecutionPlan, t0: float,
 def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,
                  stage: Optional[Dict[str, float]] = None,
                  cache_hit: bool = False,
-                 executor: str = "pipelined",
                  post=None,
                  span_seconds: Optional[Dict[str, float]] = None,
                  ) -> Tuple[CSR, OceanReport]:
     """Run a frozen plan against (possibly new) values of A and B, with
     optional fused ``post`` (``executor.MergePostOps``)."""
     from .executor import execute_plan as _execute
-    return _execute(plan, a, b, stage=stage, cache_hit=cache_hit,
-                    executor=executor, post=post, span_seconds=span_seconds)
+    return _execute(plan, a, b, stage=stage, cache_hit=cache_hit, post=post,
+                    span_seconds=span_seconds)
 
 
 def execute_sharded_plan(splan, a: CSR, b: CSR, *,
                          stage: Optional[Dict[str, float]] = None,
                          cache_hit: bool = False,
-                         executor: str = "pipelined",
                          post=None,
                          span_seconds: Optional[Dict[str, float]] = None,
                          ) -> Tuple[CSR, OceanReport]:
@@ -578,7 +572,7 @@ def execute_sharded_plan(splan, a: CSR, b: CSR, *,
     devices through the same executor pipeline."""
     from .executor import execute_sharded_plan as _execute
     return _execute(splan, a, b, stage=stage, cache_hit=cache_hit,
-                    executor=executor, post=post, span_seconds=span_seconds)
+                    post=post, span_seconds=span_seconds)
 
 
 # ---------------------------------------------------------------------------

@@ -93,7 +93,6 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
                  sketch_cache: Optional[Dict] = None,
                  devices=None,
                  analysis_devices=None,
-                 executor: str = "pipelined",
                  known_sizes=None,
                  post=None,
                  ) -> Tuple[CSR, OceanReport]:
@@ -106,9 +105,8 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     :class:`PlanCache` that cache, ``False``/``None`` always plans from
     scratch; a caller-supplied ``analysis`` bypasses the cache.
     ``sketch_cache``: dict shared across calls against one B to reuse HLL
-    sketches. ``executor``: ``"pipelined"`` (default), ``"threaded"`` or
-    ``"serial"``, bit-identical. ``known_sizes``: exact per-row output nnz
-    fed forward from a prior numeric pass (workflow ``"known"``).
+    sketches. ``known_sizes``: exact per-row output nnz fed forward from a
+    prior numeric pass (workflow ``"known"``).
     ``post``: fused merge post-ops (``executor.MergePostOps``: mask filter,
     value transform, prune, column-normalize) applied inside the merge;
     plans are post-independent, so a cached plan serves masked and
@@ -135,14 +133,13 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
                         f"plan was partitioned for [{plan.topology}], "
                         f"devices= requests [{topo}]; re-partition the "
                         "base plan with partition_plan(plan.plan, devices)")
-            return execute_sharded_plan(plan, a, b, executor=executor,
-                                        post=post)
+            return execute_sharded_plan(plan, a, b, post=post)
         if devices is not None:
             stage = {"analysis": 0.0, "prediction": 0.0, "binning": 0.0}
             splan = _partition(plan, resolve_devices(devices), stage)
             return execute_sharded_plan(splan, a, b, stage=stage,
-                                        executor=executor, post=post)
-        return execute_plan(plan, a, b, executor=executor, post=post)
+                                        post=post)
+        return execute_plan(plan, a, b, post=post)
 
     devs, an_devs = _device_sets(devices, analysis_devices)
     cache_obj = _resolve_cache(cache) if analysis is None else None
@@ -165,8 +162,8 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             trace_binning(cached.plan if isinstance(cached, ShardedPlan)
                           else cached, time.perf_counter(), replay=True)
             run = execute_plan if devs is None else execute_sharded_plan
-            return run(cached, a, b, stage=stage, cache_hit=True,
-                       executor=executor, post=post, span_seconds=spans)
+            return run(cached, a, b, stage=stage, cache_hit=True, post=post,
+                       span_seconds=spans)
         # a sharded miss re-uses a cached base plan of the structure (peek:
         # the lookup above already counted the miss)
         base = cache_obj.peek(key) if devs is not None else None
@@ -182,12 +179,11 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             stage = dict(base.build_seconds)
         stage["plan_lookup"] = lookup_s
         if devs is None:
-            return execute_plan(base, a, b, stage=stage, executor=executor,
-                                post=post, span_seconds=spans)
+            return execute_plan(base, a, b, stage=stage, post=post,
+                                span_seconds=spans)
         splan = _partition(base, devs, stage)
         cache_obj.insert(lkey, splan)
-        return execute_sharded_plan(splan, a, b, stage=stage,
-                                    executor=executor, post=post,
+        return execute_sharded_plan(splan, a, b, stage=stage, post=post,
                                     span_seconds=spans)
     fresh = build_plan(a, b, cfg, force_workflow=force_workflow,
                        assisted=assisted, hybrid=hybrid, analysis=analysis,
@@ -196,10 +192,8 @@ def ocean_spgemm(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
     if devs is not None:
         stage = dict(fresh.build_seconds)
         splan = _partition(fresh, devs, stage)
-        return execute_sharded_plan(splan, a, b, stage=stage,
-                                    executor=executor, post=post)
-    return execute_plan(fresh, a, b, stage=fresh.build_seconds,
-                        executor=executor, post=post)
+        return execute_sharded_plan(splan, a, b, stage=stage, post=post)
+    return execute_plan(fresh, a, b, stage=fresh.build_seconds, post=post)
 
 
 def warm_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
@@ -242,7 +236,6 @@ def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
                       cache: Union[bool, PlanCache, None, Sequence] = True,
                       sketch_cache: Union[Dict, Sequence, None] = None,
                       devices=None, analysis_devices=None,
-                      executor: str = "pipelined",
                       post=None,
                       ) -> List[Tuple[CSR, OceanReport]]:
     """``[A_i @ B for A_i in a_list]`` against one B, sharing B's sketches
@@ -265,8 +258,7 @@ def ocean_spgemm_many(a_list: Sequence[CSR], b: CSR,
     return [ocean_spgemm(a, b, cfg, force_workflow=force_workflow,
                          assisted=assisted, hybrid=hybrid, cache=c,
                          sketch_cache=s, devices=devs,
-                         analysis_devices=an_devs,
-                         executor=executor, post=post)
+                         analysis_devices=an_devs, post=post)
             for a, c, s in zip(a_list, caches, sketches)]
 
 

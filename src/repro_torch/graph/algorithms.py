@@ -52,7 +52,7 @@ def triangle_count(adj: CSR, cfg: OceanConfig = OceanConfig(), **kw
     with ``L`` the strictly-lower-triangular binary split, the mask fused
     into the executor merge. The entries are integer path counts; they are
     summed in float64, exact for any count below 2**53. ``kw`` forwards to
-    the multiply (``cache=``, ``executor=``, ...)."""
+    the multiply (``cache=``, ``devices=``, ...)."""
     low = lower_triangle(adj)
     c, rep = ops.masked_spgemm(low, low, low, cfg, **kw)
     return int(round(float(c.values[: c.nnz].double().sum()))), rep

@@ -111,8 +111,8 @@ class ChainRunner:
     """Stateful runner for iterated multiplies against a (usually fixed)
     right-hand side. Holds the per-chain plan cache, the RHS sketch caches
     and the :class:`SizeFeed`; all three are injectable.
-    ``devices``/``analysis_devices``/``executor`` are ``ocean_spgemm``'s
-    and apply to every iteration."""
+    ``devices``/``analysis_devices`` are ``ocean_spgemm``'s and apply to
+    every iteration."""
 
     def __init__(self, rhs: Optional[CSR],
                  cfg: OceanConfig = OceanConfig(), *,
@@ -120,8 +120,7 @@ class ChainRunner:
                  plan_cache_size: int = 32,
                  size_feed: Optional[SizeFeed] = None,
                  devices=None,
-                 analysis_devices=None,
-                 executor: str = "pipelined"):
+                 analysis_devices=None):
         self.rhs = rhs
         self.cfg = cfg
         self.plan_cache = (plan_cache if plan_cache is not None
@@ -132,7 +131,6 @@ class ChainRunner:
         self.analysis_devices = (resolve_devices(analysis_devices)
                                  if analysis_devices is not None
                                  else self.devices)
-        self.executor = executor
         self.stats = ChainStats()           # lifetime accumulation
         self._sketch_caches: "OrderedDict[str, Dict]" = OrderedDict()
 
@@ -190,8 +188,7 @@ class ChainRunner:
 
         run = execute_plan if self.devices is None else execute_sharded_plan
         c_out, rep = run(plan, c, rhs, stage=stage,
-                         cache_hit=resolved == "hit",
-                         executor=self.executor, post=post)
+                         cache_hit=resolved == "hit", post=post)
 
         # the measured raw product sizes of this pattern pair feed the next
         # plan of the pair; a plan hit with a resident entry skips the

@@ -3,8 +3,8 @@
 A :class:`Tracer` records nested, named spans — ``with span("analysis.wave1",
 shard=i): ...`` — across every thread that touches a request: the workflow
 entry point, the planner's analysis/prediction/binning stages, the
-executor's dispatch/collect/merge pipeline (including the dedicated merge
-worker thread), and the serving pool's queue-wait/batch/warmer paths.
+executor's dispatch/collect/merge pipeline, and the serving pool's
+queue-wait/batch/warmer paths.
 The reference's span names (``repro.obs.trace``) are kept, so traces of
 the two packages line up; the port adds:
 
@@ -118,20 +118,16 @@ class Tracer:
 
     def add_span(self, name: str, t0: float, dur: float,
                  tid: Optional[int] = None, thread: Optional[str] = None,
-                 mid: Optional[int] = None, **attrs) -> None:
+                 **attrs) -> None:
         """Record a span retroactively from an already-measured
         ``(t0, duration)`` pair (``perf_counter`` seconds). The span joins
         the calling thread's timeline unless ``tid``/``thread`` override
-        it (e.g. the threaded executor recording its merge worker's spans
-        after joining it); it nests under the currently open span, if
-        any, and takes this thread's multiply id — unless ``tid`` points
-        at another thread, in which case it is recorded parentless (the
-        other thread's nesting is unknown here) under the ``mid`` given."""
-        if tid is None:
-            stack = self._stack()
-            mid = self.current_mid()
-        else:
-            stack = ()
+        it (e.g. the pool's per-request queue-wait lanes); it nests under
+        the currently open span, if any, and takes this thread's multiply
+        id — unless ``tid`` names another lane, in which case it is
+        recorded parentless and with no multiply id."""
+        stack = self._stack() if tid is None else ()
+        mid = self.current_mid() if tid is None else None
         self._record(name, t0, max(dur, 0.0),
                      tid if tid is not None else threading.get_ident(),
                      thread if thread is not None

@@ -118,7 +118,7 @@ class PoolFuture:
 class _Pending:
     """One queued request. ``batch_key`` decides micro-batch
     compatibility: same B *object* (identical values, not just structure)
-    and identical planning/executor knobs — tenant deliberately excluded,
+    and identical planning knobs — tenant deliberately excluded,
     cross-tenant coalescing is the point."""
     a: CSR
     b: CSR
@@ -126,7 +126,6 @@ class _Pending:
     force_workflow: Optional[str]
     assisted: bool
     hybrid: bool
-    executor: Optional[str]
     batch_key: tuple
     future: PoolFuture
     t_submit: float
@@ -159,14 +158,13 @@ class SpGEMMPool:
                  pool: PoolConfig = PoolConfig(), *,
                  devices=None,
                  analysis_devices=None,
-                 executor: str = "pipelined",
                  autostart: bool = True):
         if isinstance(cfg, PoolConfig):   # SpGEMMPool(PoolConfig(...)) —
             cfg, pool = OceanConfig(), cfg  # knobs, not an OceanConfig
         self.pool_cfg = pool
         self.service = SpGEMMService(
             cfg, plan_cache_size=pool.plan_cache_size, devices=devices,
-            analysis_devices=analysis_devices, executor=executor,
+            analysis_devices=analysis_devices,
             tenant_plan_quota=pool.tenant_plan_quota)
         self.stats = self.service.stats
         self._lock = threading.Lock()
@@ -258,14 +256,13 @@ class SpGEMMPool:
 
     def submit(self, a: CSR, b: CSR, *, tenant: str = "default",
                force_workflow: Optional[str] = None, assisted: bool = True,
-               hybrid: bool = True,
-               executor: Optional[str] = None) -> PoolFuture:
+               hybrid: bool = True) -> PoolFuture:
         """Enqueue one C = A @ B request; returns a :class:`PoolFuture`.
 
         Raises :class:`AdmissionError` (and counts a shed) when the queue
         is at ``PoolConfig.max_queue``, RuntimeError after shutdown."""
         fut = PoolFuture()
-        key = (id(b), force_workflow, assisted, hybrid, executor)
+        key = (id(b), force_workflow, assisted, hybrid)
         with self._lock:
             if self._closed:
                 raise RuntimeError("pool is shut down")
@@ -275,8 +272,8 @@ class SpGEMMPool:
                 raise AdmissionError(tenant, depth, self.pool_cfg.max_queue)
             self._queue.append(_Pending(
                 a=a, b=b, tenant=tenant, force_workflow=force_workflow,
-                assisted=assisted, hybrid=hybrid, executor=executor,
-                batch_key=key, future=fut, t_submit=time.perf_counter()))
+                assisted=assisted, hybrid=hybrid, batch_key=key,
+                future=fut, t_submit=time.perf_counter()))
             self.stats.note_queue_depth(len(self._queue))
             self._work.notify()
             self._warm_cv.notify()
@@ -413,9 +410,7 @@ class SpGEMMPool:
                 cache=[svc.plan_cache_for(r.tenant) for r in batch],
                 sketch_cache=[svc.sketch_cache_for(r.b, r.tenant)
                               for r in batch],
-                devices=svc.devices, analysis_devices=svc.analysis_devices,
-                executor=(head.executor if head.executor is not None
-                          else svc.executor))
+                devices=svc.devices, analysis_devices=svc.analysis_devices)
         except Exception as exc:  # fail this batch's futures, keep pool alive
             for r in batch:
                 r.future.set_exception(exc)

@@ -93,9 +93,9 @@ class ServiceStats:
     plan_misses = _counter_property("plan_misses")
     total_seconds = _counter_property("total_seconds")
     setup_seconds = _counter_property("setup_seconds")
-    # pipelined-executor overlap: host-merge work moved off the
-    # post-barrier critical path (OceanReport.overlap_seconds), and
-    # the total merge work it is a fraction of
+    # merge overlap: merge work enqueued while later launches were still
+    # in flight (OceanReport.overlap_seconds), and the total merge work
+    # it is a fraction of
     overlap_seconds = _counter_property("overlap_seconds")
     merge_seconds = _counter_property("merge_seconds")
     # chain traffic (run_chain): iterations across all chains, how many
@@ -304,14 +304,11 @@ class SpGEMMService:
     def __init__(self, cfg: OceanConfig = OceanConfig(), *,
                  plan_cache_size: int = 64, devices=None,
                  analysis_devices=None,
-                 executor: str = "pipelined",
                  tenant_plan_quota: Optional[int] = None):
         self.cfg = cfg
         self.plan_cache = PlanCache(maxsize=plan_cache_size,
                                     tenant_quota=tenant_plan_quota)
         self.stats = ServiceStats()
-        # service-wide default; individual requests may override
-        self.executor = executor
         # resolved once, so every request shards over one topology (and
         # hits the same cached sharded plan)
         self.devices = (resolve_devices(devices) if devices is not None
@@ -347,15 +344,11 @@ class SpGEMMService:
                  tenant: Optional[str] = None,
                  force_workflow: Optional[str] = None,
                  assisted: bool = True,
-                 hybrid: bool = True,
-                 executor: Optional[str] = None) -> Tuple[CSR, OceanReport]:
+                 hybrid: bool = True) -> Tuple[CSR, OceanReport]:
         """Serve one C = A @ B request through the plan cache.
 
         ``tenant`` routes the request through that tenant's cache
-        namespaces (plans, sketches); outputs are identical regardless.
-        ``executor`` overrides the service default for this request
-        (``"pipelined"`` merges each launch as it completes,
-        ``"serial"`` keeps the global barrier; output is identical)."""
+        namespaces (plans, sketches); outputs are identical regardless."""
         t0 = time.perf_counter()
         c, report = ocean_spgemm(
             a, b, self.cfg, force_workflow=force_workflow,
@@ -363,8 +356,7 @@ class SpGEMMService:
             cache=self.plan_cache_for(tenant),
             sketch_cache=self.sketch_cache_for(b, tenant),
             devices=self.devices,
-            analysis_devices=self.analysis_devices,
-            executor=executor if executor is not None else self.executor)
+            analysis_devices=self.analysis_devices)
         dt = time.perf_counter() - t0
         self.stats.requests += 1
         self.stats.plan_hits += int(report.plan_cache_hit)
@@ -392,8 +384,7 @@ class SpGEMMService:
     def run_chain(self, c0: CSR, a: CSR, iterations: int, *,
                   tenant: Optional[str] = None,
                   post=None, square: bool = False,
-                  stop_on_fixed_pattern: bool = False,
-                  executor: Optional[str] = None) -> ChainResult:
+                  stop_on_fixed_pattern: bool = False) -> ChainResult:
         """Serve a chained multiply ``C_{k+1} = C_k @ A`` (the graph-
         iteration access pattern: k-hop, label propagation, MCL with
         ``square=True``).
@@ -410,8 +401,7 @@ class SpGEMMService:
         t0 = time.perf_counter()
         runner = ChainRunner(
             a, self.cfg, size_feed=self.size_feed_for(a, tenant),
-            devices=self.devices, analysis_devices=self.analysis_devices,
-            executor=executor if executor is not None else self.executor)
+            devices=self.devices, analysis_devices=self.analysis_devices)
         res = runner.run(c0, iterations, post=post, square=square,
                          stop_on_fixed_pattern=stop_on_fixed_pattern)
         st = res.stats

@@ -9,9 +9,9 @@ Run from the repository root:
 
 It builds ``chip_smoke.py``'s power-law matrix (``2**log2_rows`` rows) and
 the lower triangle L of its R-MAT graph (scale ``--graph-scale``), and plans
-``A @ A`` and ``L @ L`` with ``planner.build_plan``, the hash tuner's cache
-filled beforehand with the default load factor (``HASH_LOAD_FACTOR``) for
-every rung, so that every checkout plans the same bins. For each hash bin it
+``A @ A`` and ``L @ L`` with ``planner.build_plan``, which sizes every
+rung's tables at the default load factor (``HASH_LOAD_FACTOR``), so that
+every run plans the same bins. For each hash bin it
 times with CUDA events (median of ``--runs`` after one warm-up call):
 
 - ``ops.hash_bin_op``, the whole function the executor calls for a hash bin
@@ -29,7 +29,8 @@ products per row. It calls only functions that every version of the port
 since the graph path has had, so the same file times another checkout
 through ``PYTHONPATH``, as long as its wrappers count launches into the
 metrics registry (``obs.metrics.launched``); an older checkout is timed by
-its own copy of this file. The last line is one JSON object.
+its own copy of this file (a checkout whose planner still times a load
+factor may plan other bins). The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -74,14 +75,6 @@ def device_ms(fn, runs: int) -> float:
     us = sum(e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == DeviceType.CUDA)
     return us / 1e3 / runs
-
-
-def pin_tuning() -> None:
-    """Every rung's load factor at the default, as if already timed."""
-    from repro_torch.core import tuning
-    for rung in [32 * 2 ** k for k in range(8)] + [tuning.REFERENCE_RUNG]:
-        tuning.DEFAULT_TUNING_CACHE.insert(tuning.tuning_key(rung, "cuda"),
-                                           tuning.HashTuning())
 
 
 def bin_shape(hb) -> dict:
@@ -163,7 +156,6 @@ def main() -> int:
     result = {"label": args.label, "device": torch.cuda.get_device_name(0),
               "nvidia_smi": smi, "rows": n, "graph_scale": args.graph_scale,
               "bins": {}}
-    pin_tuning()
     low = graph.lower_triangle(graph.rmat_csr(1, args.graph_scale, 16,
                                               device="cuda"))
     mats = {"powerlaw": formats.powerlaw_csr(3, n, n, 12, device="cuda"),

@@ -144,7 +144,7 @@ def validate_chrome_trace(text: str) -> Dict:
     return doc
 
 
-def _smoke_trace(out: str, executor: str, device: str) -> Dict:
+def _smoke_trace(out: str, device: str) -> Dict:
     """Run one traced SpGEMM on ``device`` and write the validated
     trace."""
     import numpy as np
@@ -163,7 +163,7 @@ def _smoke_trace(out: str, executor: str, device: str) -> Dict:
         device=device)
     tr = trace.Tracer()
     with trace.tracing(tr):
-        _, rep = ocean_spgemm(a, b, cache=False, executor=executor)
+        _, rep = ocean_spgemm(a, b, cache=False)
         if a.device.type == "cuda":
             torch.cuda.synchronize(a.device)
     doc = write_chrome_trace(tr, out)
@@ -179,8 +179,7 @@ def _smoke_trace(out: str, executor: str, device: str) -> Dict:
     print(f"wrote {out}: {len(doc['traceEvents'])} events over "
           f"{len({(e['pid'], e.get('tid')) for e in doc['traceEvents']})} "
           "lanes "
-          f"(workflow={rep.workflow}, executor={executor}, "
-          f"device={device})")
+          f"(workflow={rep.workflow}, device={device})")
     return doc
 
 
@@ -188,9 +187,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="trace.json",
                     help="output trace path (Chrome trace JSON)")
-    ap.add_argument("--executor", default="threaded",
-                    help="executor for the smoke run "
-                         "(serial|pipelined|threaded)")
     ap.add_argument("--device", default="cuda",
                     help="device of the traced call (cuda|cpu)")
     ap.add_argument("--validate", metavar="PATH",
@@ -201,7 +197,7 @@ def main(argv=None) -> int:
             doc = validate_chrome_trace(fh.read())
         print(f"{args.validate}: ok ({len(doc['traceEvents'])} events)")
         return 0
-    _smoke_trace(args.out, args.executor, args.device)
+    _smoke_trace(args.out, args.device)
     return 0
 
 

@@ -10,8 +10,9 @@ that agree to rtol 1e-5). Sharded outputs are bit-identical to the port's
 unsharded runs; against the reference, indices exact and values rtol 1e-5
 / atol 1e-6.
 
-Hash tables are sized from a timed load factor, so both packages' tuning
-caches are replaced by pinned ones while this module runs.
+The reference sizes its hash tables from a timed load factor, so its
+tuning cache is replaced by a pinned one while this module runs (the port
+sizes them from a fixed one).
 """
 import collections
 import json
@@ -29,7 +30,7 @@ from repro.core import workflow as rworkflow  # noqa: E402
 from repro.obs import trace as rtrace  # noqa: E402
 import repro_torch.graph as graph  # noqa: E402
 from repro_torch import serving  # noqa: E402
-from repro_torch.core import analysis, formats, planner, tuning  # noqa: E402
+from repro_torch.core import analysis, formats, planner  # noqa: E402
 from repro_torch.core import workflow  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.tools import trace_export  # noqa: E402
@@ -48,12 +49,10 @@ def cpus(n):
 @pytest.fixture(scope="module", autouse=True)
 def pinned_tuning():
     with pytest.MonkeyPatch.context() as mp:
-        rcache, pcache = rtuning.TuningCache(), tuning.TuningCache()
+        rcache = rtuning.TuningCache()
         for r in RUNGS:
             rcache.insert(rtuning.tuning_key(r), rtuning.HashTuning())
-            pcache.insert(tuning.tuning_key(r, "cpu"), tuning.HashTuning())
         mp.setattr(rtuning, "DEFAULT_TUNING_CACHE", rcache)
-        mp.setattr(tuning, "DEFAULT_TUNING_CACHE", pcache)
         yield
 
 
@@ -276,22 +275,21 @@ def lanes(tracer, exporter):
     return dict(out)
 
 
-@pytest.mark.parametrize("executor", ["threaded", "serial"])
+@pytest.mark.parametrize("n", [2, 3])
 @pytest.mark.parametrize("name", ["banded_wide", "uniform_small"])
-def test_sharded_call_spans_match_reference(suites, name, executor):
+def test_sharded_call_spans_match_reference(suites, name, n):
     ra, pa = suites[0][name], suites[1][name]
     rtr, ptr = rtrace.Tracer(), trace.Tracer()
     with rtrace.tracing(rtr):
-        rworkflow.ocean_spgemm(ra, ra, cache=False, devices=3,
-                               executor=executor)
+        rworkflow.ocean_spgemm(ra, ra, cache=False, devices=n,
+                               executor="pipelined")
     with trace.tracing(ptr):
-        workflow.ocean_spgemm(pa, pa, cache=False, devices=cpus(3),
-                              executor=executor)
+        workflow.ocean_spgemm(pa, pa, cache=False, devices=cpus(n))
     assert lanes(ptr, trace_export) == lanes(rtr, rtrace_export)
     waves = {e["name"]: e["attrs"] for e in ptr.events()
              if e["name"].startswith("analysis.wave")}
-    assert waves == {"analysis.wave1": {"shards": 3},
-                     "analysis.wave2": {"shards": 3}}
+    assert waves == {"analysis.wave1": {"shards": n},
+                     "analysis.wave2": {"shards": n}}
     assert "plan.partition" in ptr.names()
 
 
@@ -348,8 +346,7 @@ def test_service_with_devices():
     *pats, b = _serve_mats(device="cpu")
     svc = serving.SpGEMMService(devices=cpus(2), analysis_devices=cpus(4))
     for a in pats:
-        want, _ = workflow.ocean_spgemm(a, b, cache=False,
-                                       executor="serial")
+        want, _ = workflow.ocean_spgemm(a, b, cache=False)
         c1, rep1 = svc.multiply(a, b, tenant="acme")
         c2, rep2 = svc.multiply(a, b, tenant="acme")
         assert (rep1.n_shards, rep1.analysis_shards) == (2, 4)
@@ -364,8 +361,7 @@ def test_service_with_devices():
 
 def test_pool_with_devices_and_chains():
     *pats, b = _serve_mats(device="cpu")
-    wants = [workflow.ocean_spgemm(a, b, cache=False, executor="serial")[0]
-             for a in pats]
+    wants = [workflow.ocean_spgemm(a, b, cache=False)[0] for a in pats]
     pool = serving.SpGEMMPool(serving.PoolConfig(workers=2, max_batch=4),
                               devices=cpus(3), autostart=False)
     futs = [(p, pool.submit(pats[p], b, tenant=t))

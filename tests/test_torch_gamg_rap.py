@@ -9,20 +9,10 @@ import torch
 
 from perfbench import manifest
 from perfbench.gen import fem_gamg_rap
-from repro_torch.core import formats, planner, tuning, workflow
+from repro_torch.core import formats, planner, workflow
 from repro_torch.obs import metrics, trace
 
 CFG = manifest.config(manifest.load(), "fem-q1-gamg-rap")
-
-
-@pytest.fixture(autouse=True)
-def pinned_tuning(monkeypatch):
-    cache = tuning.TuningCache()
-    rung = 32
-    while rung <= 2048:
-        cache.insert(tuning.tuning_key(rung, "cpu"), tuning.DEFAULT_TUNING)
-        rung *= 2
-    monkeypatch.setattr(tuning, "DEFAULT_TUNING_CACHE", cache)
 
 
 def operands(ne, seed):

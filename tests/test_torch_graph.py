@@ -9,8 +9,9 @@ product-enumeration order); the MCL iterate within atol 1e-5, as the
 reference's own test holds it to its oracle (inflation and normalization
 over several iterations).
 
-Hash tables are sized from a timed load factor, so both packages' tuning
-caches are pinned to the default tuning while this module runs.
+The reference sizes its hash tables from a timed load factor, so its
+tuning cache is pinned to the default tuning while this module runs (the
+port sizes them from that default without a cache).
 """
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ from repro.core import executor as rexecutor  # noqa: E402
 from repro.core import formats as rformats  # noqa: E402
 from repro.core import workflow as rworkflow  # noqa: E402
 import repro_torch.graph as graph  # noqa: E402
-from repro_torch.core import executor, formats, tuning, workflow  # noqa: E402,E501
+from repro_torch.core import executor, formats, workflow  # noqa: E402
 
 RUNGS = (32, 64, 128, 256, 512, 1024, 2048, rtuning.REFERENCE_RUNG)
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -31,19 +32,14 @@ FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(scope="module", autouse=True)
 def pinned_tuning():
-    saved = (dict(rtuning.DEFAULT_TUNING_CACHE._entries),
-             dict(tuning.DEFAULT_TUNING_CACHE._entries))
+    saved = dict(rtuning.DEFAULT_TUNING_CACHE._entries)
     for r in RUNGS:
         rtuning.DEFAULT_TUNING_CACHE.insert(rtuning.tuning_key(r),
                                             rtuning.HashTuning())
-        tuning.DEFAULT_TUNING_CACHE.insert(tuning.tuning_key(r, "cpu"),
-                                           tuning.HashTuning())
     yield
-    for cache, entries in zip((rtuning.DEFAULT_TUNING_CACHE,
-                               tuning.DEFAULT_TUNING_CACHE), saved):
-        cache.clear()
-        for k, v in entries.items():
-            cache.insert(k, v)
+    rtuning.DEFAULT_TUNING_CACHE.clear()
+    for k, v in saved.items():
+        rtuning.DEFAULT_TUNING_CACHE.insert(k, v)
 
 
 def both(gen_name, *args, **kw):
@@ -147,17 +143,19 @@ def test_host_ops_match_reference():
 
 
 @pytest.mark.parametrize("post", ["mask", "inflate"])
-def test_collect_modes_agree_with_post(post):
-    (_, pa), (_, pm) = uniform(47, 200, 200, 10.0), uniform(48, 200, 200,
-                                                            5.0)
-    ops = (graph.mask_post(pm, threshold=0.1) if post == "mask"
-           else graph.inflate_post(pa.n, 2.0, 1e-3))
-    outs = [workflow.ocean_spgemm(pa, pa, cache=False, executor=ex,
-                                  post=ops)
-            for ex in ("serial", "pipelined", "threaded")]
-    for c, rep in outs[1:]:
-        assert_bit_identical(c, outs[0][0])
-        np.testing.assert_array_equal(rep.raw_row_nnz, outs[0][1].raw_row_nnz)
+def test_fused_mask_and_inflate_post_match_reference(post):
+    (ra, pa), (rm, pm) = uniform(47, 200, 200, 10.0), uniform(48, 200, 200,
+                                                              5.0)
+    if post == "mask":
+        ops, rops = (graph.mask_post(pm, threshold=0.1),
+                     rgraph.mask_post(rm, threshold=0.1))
+    else:
+        ops, rops = (graph.inflate_post(pa.n, 2.0, 1e-3),
+                     rgraph.inflate_post(ra.n, 2.0, 1e-3))
+    c, rep = workflow.ocean_spgemm(pa, pa, cache=False, post=ops)
+    rc, rrep = rworkflow.ocean_spgemm(ra, ra, cache=False, post=rops)
+    assert_same_csr(c, rc)
+    np.testing.assert_array_equal(rep.raw_row_nnz, rrep.raw_row_nnz)
 
 
 @pytest.mark.parametrize("gen,args", [

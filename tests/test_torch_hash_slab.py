@@ -227,8 +227,8 @@ def test_launch_shape_fits_each_table(table, regs):
 
 
 def test_launch_shape_covers_the_plan_ladder():
-    """Every table a plan or the load-factor tuner can ask for has a shape
-    (the tuner's largest rung sizes a table of 4096 at load factor 0.5)."""
+    """Every table of the plan ladder has a shape, and so does the next
+    power of two past its top (a table of 4096)."""
     shapes = {}
     for table in [binning.HASH_MIN_TABLE * 2 ** k for k in range(8)]:
         shapes[table] = khash.launch_shape(

@@ -1,8 +1,8 @@
 """The port's spans inside a multiply: one multiply id on every span under
 the root ``ocean.spgemm``, the timed steps of the merge and the plan
 lookup nested in their parents and equal to ``OceanReport.span_seconds``,
-the same stage keys under every executor, nothing built while tracing is
-off, and (on a card) each bin launch's device span around its kernel in
+the same stage keys on one device, on two and with fused post-ops, nothing
+built while tracing is off, and (on a card) each bin launch's device span around its kernel in
 the profiler's trace.
 """
 import collections
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import formats, planner, workflow
+from repro_torch.graph import ops as graph_ops
 from repro_torch.obs import metrics, trace
 from _torch_launches import launches  # noqa: F401 (the fixture)
 
@@ -27,28 +28,31 @@ def _matrix(device="cpu"):
     return formats.powerlaw_csr(5, 160, 160, 6.0, device=device)
 
 
-def _traced_calls(executor, warm, n=2):
+def _traced_calls(run, warm, n=2):
     """``n`` traced multiplies of one powerlaw matrix whose undersized
-    fed-forward sizes send rows to the overflow fallback; ``warm``: each
-    replays a plan cached by an untraced call first."""
+    fed-forward sizes send rows to the overflow fallback, run on one
+    device, on two (``devices=``) or masked by A's pattern (``post=``);
+    ``warm``: each replays a plan cached by an untraced call first."""
     a = _matrix()
-    known = np.ones(a.m, np.int64)
+    kw = {"known_sizes": np.ones(a.m, np.int64)}
+    if run == "two_devices":
+        kw["devices"] = ["cpu"] * 2
+    elif run == "masked":
+        kw["post"] = graph_ops.mask_post(a)
     cache = planner.PlanCache() if warm else False
     if warm:
-        workflow.ocean_spgemm(a, a, cache=cache, known_sizes=known,
-                              executor=executor)
+        workflow.ocean_spgemm(a, a, cache=cache, **kw)
     tr = trace.Tracer()
     with trace.tracing(tr):
-        reps = [workflow.ocean_spgemm(a, a, cache=cache, known_sizes=known,
-                                      executor=executor)[1]
+        reps = [workflow.ocean_spgemm(a, a, cache=cache, **kw)[1]
                 for _ in range(n)]
     return tr, reps
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
-@pytest.mark.parametrize("executor", ["serial", "pipelined", "threaded"])
-def test_spans_of_a_multiply(executor, warm):
-    tr, reps = _traced_calls(executor, warm)
+@pytest.mark.parametrize("run", ["one_device", "two_devices", "masked"])
+def test_spans_of_a_multiply(run, warm):
+    tr, reps = _traced_calls(run, warm)
     events = tr.events()
     roots = [e for e in events if e["name"] == trace.ROOT]
     assert len(roots) == 2 and roots[0]["mid"] != roots[1]["mid"]
@@ -62,6 +66,8 @@ def test_spans_of_a_multiply(executor, warm):
         assert root["attrs"] == {"mid": root["mid"],
                                  "cache_hit": warm, "workflow": "known"}
         assert rep.plan_cache_hit == warm and rep.overflow_rows > 0
+        assert rep.n_shards == (2 if run == "two_devices" else 1)
+        assert (rep.raw_row_nnz is not None) == (run == "masked")
         for e in mine:
             assert root["t0"] <= e["t0"] and (
                 e["t0"] + e["dur"] <= root["t0"] + root["dur"])
@@ -102,20 +108,18 @@ def test_spans_of_a_multiply(executor, warm):
     assert tr.device_events() == []
 
 
-def test_merge_stage_equals_its_parts_under_every_executor():
-    """``merge`` is the per-slab merge, the fallback and the compaction,
-    under each executor; without tracing the steps are timed all the
-    same, and no device time is measured."""
+def test_merge_stage_equals_its_parts():
+    """``merge`` is the per-slab merge, the fallback and the compaction;
+    without tracing the steps are timed all the same, and no device time
+    is measured."""
     a = _matrix()
     known = np.ones(a.m, np.int64)
-    for ex in ("serial", "pipelined", "threaded"):
-        _, rep = workflow.ocean_spgemm(a, a, cache=False, known_sizes=known,
-                                       executor=ex)
-        parts = (rep.span_seconds["exec.overflow_fallback"]
-                 + rep.span_seconds["exec.compact"])
-        assert 0.0 < parts <= rep.stage_seconds["merge"]
-        assert rep.device_seconds is None
-        assert rep.audit() == []
+    _, rep = workflow.ocean_spgemm(a, a, cache=False, known_sizes=known)
+    parts = (rep.span_seconds["exec.overflow_fallback"]
+             + rep.span_seconds["exec.compact"])
+    assert 0.0 < parts <= rep.stage_seconds["merge"]
+    assert rep.device_seconds is None
+    assert rep.audit() == []
 
 
 def test_nothing_built_while_tracing_is_off(monkeypatch):
@@ -141,17 +145,15 @@ def test_nothing_built_while_tracing_is_off(monkeypatch):
     first = tr.events()[-1]["mid"]
     assert built["Span"] > 0
     built.clear()
-    steps = 0
-    for ex in ("serial", "pipelined", "threaded"):
-        _, rep = workflow.ocean_spgemm(a, a, cache=planner.PlanCache(),
-                                       known_sizes=known, executor=ex)
-        assert rep.overflow_rows > 0 and rep.device_seconds is None
-        steps += len(rep.span_seconds)
+    _, rep = workflow.ocean_spgemm(a, a, cache=planner.PlanCache(),
+                                   known_sizes=known)
+    assert rep.overflow_rows > 0 and rep.device_seconds is None
+    steps = len(rep.span_seconds)
     # a card's device is timed only while tracing
     assert trace.device_timer(torch.device("cuda", 0)) is None
     assert trace.current_mid() is None
     # one stopwatch a timed step, and nothing else
-    assert built == {"stopwatch": steps} and steps == 3 * 8
+    assert built == {"stopwatch": steps} and steps == 8
     # the untraced calls drew no multiply id
     with trace.tracing(tr):
         workflow.ocean_spgemm(a, a, cache=False)

@@ -9,8 +9,9 @@ port's sharded C is bit-identical to its single-device C; against the
 reference's sharded C the values are held to rtol 1e-5 / atol 1e-6 (both
 sides sum in product-enumeration order).
 
-Hash tables are sized from a timed load factor, so both packages' tuning
-caches are replaced by pinned ones while this module runs.
+The reference sizes its hash tables from a timed load factor, so its
+tuning cache is replaced by a pinned one while this module runs (the port
+sizes them from a fixed one).
 """
 
 import numpy as np
@@ -29,14 +30,13 @@ from repro.core import planner as rplanner  # noqa: E402
 from repro.core import tuning as rtuning  # noqa: E402
 from repro.core.analysis import OceanConfig as ROceanConfig  # noqa: E402
 from repro_torch.core import (dispatch, formats, partition, planner,  # noqa: E402,E501
-                              tuning, workflow)
+                              workflow)
 from repro_torch.core.analysis import OceanConfig  # noqa: E402
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      make_shard_mesh)
 
 RUNGS = (32, 64, 128, 256, 512, 1024, 2048, rtuning.REFERENCE_RUNG)
 SUITE_NAMES = [name for name, _ in rformats.make_suite(1)]
-EXECUTORS = ("serial", "pipelined", "threaded")
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
@@ -47,12 +47,10 @@ def cpus(n):
 @pytest.fixture(scope="module", autouse=True)
 def pinned_tuning():
     with pytest.MonkeyPatch.context() as mp:
-        rcache, pcache = rtuning.TuningCache(), tuning.TuningCache()
+        rcache = rtuning.TuningCache()
         for r in RUNGS:
             rcache.insert(rtuning.tuning_key(r), rtuning.HashTuning())
-            pcache.insert(tuning.tuning_key(r, "cpu"), tuning.HashTuning())
         mp.setattr(rtuning, "DEFAULT_TUNING_CACHE", rcache)
-        mp.setattr(tuning, "DEFAULT_TUNING_CACHE", pcache)
         yield
 
 
@@ -193,17 +191,14 @@ def test_bin_containers_carry_reference_costs(plans, name):
 # Sharded execution: bit-identical to single-device, as the reference's
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("executor", EXECUTORS)
+@pytest.mark.parametrize("n", (2, 3, 4))
 @pytest.mark.parametrize("name", SUITE_NAMES)
-def test_sharded_equals_single_device(plans, name, executor):
+def test_sharded_equals_single_device(plans, name, n):
     _, _, pa, pplan, c1 = plans[name]
-    for n in (2, 4):
-        c2, rep = planner.execute_sharded_plan(
-            partition.partition_plan(pplan, cpus(n)), pa, pa,
-            executor=executor)
-        assert_bit_identical(c2, c1)
-        assert (rep.n_shards, rep.nnz_out, rep.executor) == (n, c1.nnz,
-                                                            executor)
+    c2, rep = planner.execute_sharded_plan(
+        partition.partition_plan(pplan, cpus(n)), pa, pa)
+    assert_bit_identical(c2, c1)
+    assert (rep.n_shards, rep.nnz_out) == (n, c1.nnz)
 
 
 @pytest.mark.parametrize("name", SUITE_NAMES)
@@ -250,11 +245,10 @@ def test_sharded_exact_under_overflow():
                                 force_workflow="estimation")
     rc, rrep = rplanner.execute_sharded_plan(
         rpartition.partition_plan(rplan, 4), ra, ra)
-    for ex in EXECUTORS:
-        c2, rep2 = planner.execute_sharded_plan(
-            partition.partition_plan(pplan, cpus(4)), pa, pa, executor=ex)
-        assert rep2.overflow_rows == rep1.overflow_rows == rrep.overflow_rows
-        assert_bit_identical(c2, c1)
+    c2, rep2 = planner.execute_sharded_plan(
+        partition.partition_plan(pplan, cpus(4)), pa, pa)
+    assert rep2.overflow_rows == rep1.overflow_rows == rrep.overflow_rows
+    assert_bit_identical(c2, c1)
     assert_same_csr(c2, rc)
 
 

@@ -1,22 +1,22 @@
 """The port's SpGEMM serving tier vs the JAX reference, on the CPU.
 
-Service, worker pool, tenant plan caches and the single-flight hash tuner
-of ``repro_torch`` are compared with ``repro`` on the same requests: the
+Service, worker pool and tenant plan caches of ``repro_torch`` are
+compared with ``repro`` on the same requests: the
 reference test's matrices (``tests/test_serving_pool.py``), built from the
 same seeds in both packages. Integers are exact: output indptr/indices,
 batch, warm, shed and plan-cache counts, chain counters. Values: rtol 1e-5
 / atol 1e-6 against the reference (both sides sum in product-enumeration
 order); the port's pooled outputs are bit-identical to its own uncached
-serial calls.
+calls, one request at a time.
 
-Hash tables are sized from a timed load factor, so both packages' tuning
-caches are replaced by pinned ones while this module runs.
+The reference sizes its hash tables from a timed load factor, so its
+tuning cache is replaced by a pinned one while this module runs (the port
+sizes them from a fixed one).
 """
 import os
 import subprocess
 import sys
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -31,7 +31,7 @@ from repro.core import tuning as rtuning  # noqa: E402
 from repro.serving import spgemm_service as rservice  # noqa: E402
 import repro_torch.graph as graph  # noqa: E402
 from repro_torch import serving  # noqa: E402
-from repro_torch.core import formats, planner, tuning, workflow  # noqa: E402
+from repro_torch.core import formats, planner, workflow  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.serving import pool as pool_mod  # noqa: E402
 from repro_torch.serving import spgemm_service as service  # noqa: E402
@@ -47,12 +47,10 @@ TIMEOUT = 120
 @pytest.fixture(scope="module", autouse=True)
 def pinned_tuning():
     with pytest.MonkeyPatch.context() as mp:
-        rcache, pcache = rtuning.TuningCache(), tuning.TuningCache()
+        rcache = rtuning.TuningCache()
         for r in RUNGS:
             rcache.insert(rtuning.tuning_key(r), rtuning.HashTuning())
-            pcache.insert(tuning.tuning_key(r, "cpu"), tuning.HashTuning())
         mp.setattr(rtuning, "DEFAULT_TUNING_CACHE", rcache)
-        mp.setattr(tuning, "DEFAULT_TUNING_CACHE", pcache)
         yield
 
 
@@ -77,7 +75,7 @@ def requests(knobs=({},)):
 
 
 def port_serial(a, b, **kw):
-    c, _ = workflow.ocean_spgemm(a, b, cache=False, executor="serial", **kw)
+    c, _ = workflow.ocean_spgemm(a, b, cache=False, **kw)
     return c
 
 
@@ -117,9 +115,9 @@ def burst(pool_cls, cfg, mats, reqs, **pool_kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob", [
-    {}, {"executor": "pipelined"}, {"executor": "threaded"},
-    {"executor": "serial"}, {"force_workflow": "symbolic"}],
-    ids=["default", "pipelined", "threaded", "serial", "symbolic"])
+    {}, {"force_workflow": "symbolic"}, {"force_workflow": "estimation"},
+    {"force_workflow": "upper_bound"}, {"hybrid": False}],
+    ids=["default", "symbolic", "estimation", "upper_bound", "no_hybrid"])
 def test_pooled_outputs_match_serial_and_reference(mats, knob):
     ref, port = mats
     reqs = requests((knob,))
@@ -129,9 +127,8 @@ def test_pooled_outputs_match_serial_and_reference(mats, knob):
     st, pouts = burst(serving.SpGEMMPool, serving.PoolConfig(**cfg), port,
                       reqs)
     assert st.requests == st.batched_requests == len(reqs)
-    serial_kw = {k: v for k, v in knob.items() if k != "executor"}
     for (p, _, _), (c, rep), (rc, _) in zip(reqs, pouts, routs):
-        assert_bit_identical(c, port_serial(port[p], port[3], **serial_kw))
+        assert_bit_identical(c, port_serial(port[p], port[3], **knob))
         assert_same_csr(c, rc)
         if "force_workflow" in knob:
             assert rep.workflow == knob["force_workflow"]
@@ -141,7 +138,7 @@ def test_pooled_outputs_match_serial_and_reference(mats, knob):
 # Deterministic batching: the same counts as the reference
 # ---------------------------------------------------------------------------
 
-INCOMPATIBLE = ({}, {"executor": "serial"}, {"force_workflow": "estimation"})
+INCOMPATIBLE = ({}, {"hybrid": False}, {"force_workflow": "estimation"})
 
 
 @pytest.mark.parametrize("knobs", [({},), INCOMPATIBLE],
@@ -415,7 +412,7 @@ def test_warmer_survives_bad_request(mats):
     pool = serving.SpGEMMPool(pool=serving.PoolConfig(workers=1),
                               autostart=False)
     bad = pool.submit(None, b)
-    good = pool.submit(a1, b, executor="serial")   # another batch key
+    good = pool.submit(a1, b, hybrid=False)   # another batch key
     assert pool.warm_wait(TIMEOUT)
     with pool._lock:
         assert [r.warm_state for r in pool._queue] == ["error", "warmed"]
@@ -425,7 +422,7 @@ def test_warmer_survives_bad_request(mats):
         bad.result(0)
     c, _ = good.result(0)
     pool.shutdown(timeout=TIMEOUT)
-    assert_bit_identical(c, port_serial(a1, b))
+    assert_bit_identical(c, port_serial(a1, b, hybrid=False))
     assert pool.stats.plans_warmed == 1 and pool.stats.plan_warm_hits == 1
 
 
@@ -607,66 +604,3 @@ def test_serving_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
-
-
-# ---------------------------------------------------------------------------
-# Single-flight hash tuner
-# ---------------------------------------------------------------------------
-
-def _ask_at_once(n, cache):
-    start = threading.Barrier(n)
-    got = [None] * n
-
-    def ask(i):
-        start.wait()
-        try:
-            got[i] = tuning.hash_tuning_for(512, cache=cache, device="cpu")
-        except RuntimeError as exc:
-            got[i] = exc
-
-    threads = [threading.Thread(target=ask, args=(i,)) for i in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(TIMEOUT)
-        assert not t.is_alive()
-    return got
-
-
-def test_tuner_measures_once_for_concurrent_askers(monkeypatch):
-    calls = []
-
-    def measure(rung, device):
-        calls.append(rung)
-        time.sleep(0.2)
-        return tuning.HashTuning(load_factor=0.5)
-
-    monkeypatch.setattr(tuning, "_measure", measure)
-    cache = tuning.TuningCache()
-    got = _ask_at_once(8, cache)
-    assert calls == [512]
-    assert all(g is got[0] for g in got)
-    assert got[0].load_factor == 0.5
-    assert tuning.hash_tuning_for(512, cache=cache, device="cpu") is got[0]
-    assert calls == [512]
-
-
-def test_tuner_error_reaches_every_waiter(monkeypatch):
-    calls = []
-
-    def measure(rung, device):
-        calls.append(rung)
-        time.sleep(0.2)
-        raise RuntimeError("kernel launch failed")
-
-    monkeypatch.setattr(tuning, "_measure", measure)
-    cache = tuning.TuningCache()
-    got = _ask_at_once(8, cache)
-    assert calls == [512]
-    assert all(isinstance(g, RuntimeError)
-               and "kernel launch failed" in str(g) for g in got)
-    assert len(cache) == 0
-    # never turned into the default tuning: the next ask measures again
-    with pytest.raises(RuntimeError, match="kernel launch failed"):
-        tuning.hash_tuning_for(512, cache=cache, device="cpu")
-    assert calls == [512, 512]

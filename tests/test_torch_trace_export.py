@@ -24,7 +24,7 @@ from repro.core import tuning as rtuning  # noqa: E402
 from repro.core import workflow as rworkflow  # noqa: E402
 from repro.obs import trace as rtrace  # noqa: E402
 from repro_torch import serving  # noqa: E402
-from repro_torch.core import formats, tuning, workflow  # noqa: E402
+from repro_torch.core import formats, workflow  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.tools import trace_export  # noqa: E402
 from tools import trace_export as rtrace_export  # noqa: E402
@@ -41,12 +41,10 @@ PORT_SPANS = {trace.ROOT}.union(*trace.SUB_SPANS.values())
 @pytest.fixture(scope="module", autouse=True)
 def pinned_tuning():
     with pytest.MonkeyPatch.context() as mp:
-        rcache, pcache = rtuning.TuningCache(), tuning.TuningCache()
+        rcache = rtuning.TuningCache()
         for r in RUNGS:
             rcache.insert(rtuning.tuning_key(r), rtuning.HashTuning())
-            pcache.insert(tuning.tuning_key(r, "cpu"), tuning.HashTuning())
         mp.setattr(rtuning, "DEFAULT_TUNING_CACHE", rcache)
-        mp.setattr(tuning, "DEFAULT_TUNING_CACHE", pcache)
         yield
 
 
@@ -75,15 +73,24 @@ def lanes(tracer, exporter, only=None, port=False):
     return dict(out)
 
 
-@pytest.mark.parametrize("executor", ["threaded", "serial"])
-def test_traced_call_spans_and_nesting_match_reference(executor):
-    ra, pa = _pair("random_uniform_csr", 11, 120, 120, 6.0)
-    rb, pb = _pair("random_uniform_csr", 14, 120, 120, 5.0)
+OPERANDS = {
+    "uniform": (("random_uniform_csr", 11, 120, 120, 6.0),
+                ("random_uniform_csr", 14, 120, 120, 5.0)),
+    "banded_powerlaw": (("banded_csr", 12, 120, 120, 24),
+                        ("powerlaw_csr", 13, 120, 120, 6.0)),
+}
+
+
+@pytest.mark.parametrize("operands", sorted(OPERANDS))
+def test_traced_call_spans_and_nesting_match_reference(operands):
+    a_args, b_args = OPERANDS[operands]
+    ra, pa = _pair(*a_args)
+    rb, pb = _pair(*b_args)
     rtr, ptr = rtrace.Tracer(), trace.Tracer()
     with rtrace.tracing(rtr):
-        rworkflow.ocean_spgemm(ra, rb, cache=False, executor=executor)
+        rworkflow.ocean_spgemm(ra, rb, cache=False, executor="pipelined")
     with trace.tracing(ptr):
-        workflow.ocean_spgemm(pa, pb, cache=False, executor=executor)
+        workflow.ocean_spgemm(pa, pb, cache=False)
     got = lanes(ptr, trace_export, port=True)
     assert got == lanes(rtr, rtrace_export)
     names = set().union(*({n for n, _ in c} for c in got.values()))

@@ -9,8 +9,9 @@ sides sum in product-enumeration order; only last-ulp f32 differences are
 allowed). Sampled CR statistics: rtol 1e-6 (float64 arithmetic over HLL
 estimates that agree to rtol 1e-5).
 
-Hash tables are sized from a *timed* load factor, so both packages' tuning
-caches are pinned to the default tuning for the duration of this module.
+The reference sizes its hash tables from a *timed* load factor, so its
+tuning cache is pinned to the default tuning for the duration of this
+module; the port sizes them from that default without a cache.
 """
 import os
 import subprocess
@@ -24,10 +25,13 @@ torch = pytest.importorskip("torch")
 from repro.core import analysis as ranalysis  # noqa: E402
 from repro.core import esc as resc  # noqa: E402
 from repro.core import formats as rformats  # noqa: E402
+from repro.core import planner as rplanner  # noqa: E402
 from repro.core import tuning as rtuning  # noqa: E402
 from repro.core import workflow as rworkflow  # noqa: E402
 from repro_torch.core import analysis, esc, formats, planner, tuning  # noqa: E402,E501
 from repro_torch.core import workflow  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -37,19 +41,14 @@ RUNGS = (32, 64, 128, 256, 512, 1024, 2048, rtuning.REFERENCE_RUNG)
 
 @pytest.fixture(scope="module", autouse=True)
 def pinned_tuning():
-    saved = (dict(rtuning.DEFAULT_TUNING_CACHE._entries),
-             dict(tuning.DEFAULT_TUNING_CACHE._entries))
+    saved = dict(rtuning.DEFAULT_TUNING_CACHE._entries)
     for r in RUNGS:
         rtuning.DEFAULT_TUNING_CACHE.insert(rtuning.tuning_key(r),
                                             rtuning.HashTuning())
-        tuning.DEFAULT_TUNING_CACHE.insert(tuning.tuning_key(r, "cpu"),
-                                           tuning.HashTuning())
     yield
-    for cache, entries in zip((rtuning.DEFAULT_TUNING_CACHE,
-                               tuning.DEFAULT_TUNING_CACHE), saved):
-        cache.clear()
-        for k, v in entries.items():
-            cache.insert(k, v)
+    rtuning.DEFAULT_TUNING_CACHE.clear()
+    for k, v in saved.items():
+        rtuning.DEFAULT_TUNING_CACHE.insert(k, v)
 
 
 @pytest.fixture(scope="module")
@@ -164,11 +163,10 @@ def test_forced_workflows_and_v1_ablation_match(suites, name, kw):
 
 
 @pytest.mark.parametrize("name", ["uniform_small", "powerlaw", "skewed"])
-def test_collect_modes_and_cache_bit_identical(suites, name):
+def test_cache_replays_bit_identical(suites, name):
     a = suites[1][name]
     cache = planner.PlanCache()
-    outs = [workflow.ocean_spgemm(a, a, cache=cache, executor=ex)
-            for ex in ("serial", "pipelined", "threaded")]
+    outs = [workflow.ocean_spgemm(a, a, cache=cache) for _ in range(3)]
     assert [r.plan_cache_hit for _, r in outs] == [False, True, True]
     assert cache.stats() == {"hits": 2, "misses": 1, "size": 1}
     base = formats.to_numpy(outs[0][0])
@@ -229,19 +227,41 @@ def test_default_device_refuses_to_fall_back_to_cpu():
         workflow.ocean_spgemm(a, a)
 
 
-def test_tuning_errors_propagate(monkeypatch):
-    def boom(rung, device):
-        raise RuntimeError("kernel launch failed")
+@pytest.mark.parametrize("name", SUITE_NAMES)
+def test_default_plan_needs_no_pin(suites, name, monkeypatch, launches):
+    """With an empty tuning cache the port plans what the reference plans
+    with every rung pinned, bin for bin, and never runs the hash bin op
+    to choose a load factor: the cache is neither read nor filled."""
+    ref, port = suites[0][name], suites[1][name]
+    cache = tuning.TuningCache()
+    monkeypatch.setattr(tuning, "DEFAULT_TUNING_CACHE", cache)
+    hash_ops = []
+    real_hash_op = kops.hash_bin_op
 
-    monkeypatch.setattr(tuning, "_measure", boom)
-    with pytest.raises(RuntimeError, match="kernel launch failed"):
-        tuning.hash_tuning_for(64, cache=tuning.TuningCache(), device="cpu")
-    assert tuning.tuning_key(64, "cpu") != tuning.tuning_key(128, "cpu")
+    def counted_hash_op(*args, **kw):
+        hash_ops.append(kw.get("table"))
+        return real_hash_op(*args, **kw)
 
-
-def test_tuning_measures_through_hash_bin_op():
-    t = tuning.hash_tuning_for(64, cache=tuning.TuningCache(), device="cpu")
-    assert t.load_factor in tuning.LOAD_FACTOR_CANDIDATES
+    monkeypatch.setattr(kops, "hash_bin_op", counted_hash_op)
+    pplan = planner.build_plan(port, port)
+    rplan = rplanner.build_plan(ref, ref)
+    assert pplan.workflow == rplan.workflow
+    assert dict(pplan.bins_describe) == dict(rplan.bins_describe)
+    assert len(pplan.dense) == len(rplan.dense)
+    assert len(pplan.hash) == len(rplan.hash)
+    for got, want in zip(pplan.dense, rplan.dense):
+        assert (got.window, got.col_tiles, got.cap, got.bin_id) == (
+            want.window, want.col_tiles, want.cap, want.bin_id)
+        np.testing.assert_array_equal(got.rows, want.rows)
+    for got, want in zip(pplan.hash, rplan.hash):
+        assert (got.table, got.spill, got.f_chunk, got.tile, got.bin_id) == (
+            want.table, want.spill, want.f_chunk, want.tile, want.bin_id)
+        np.testing.assert_array_equal(got.rows, want.rows)
+    assert (pplan.esc is None) == (rplan.esc is None)
+    if rplan.esc is not None:
+        np.testing.assert_array_equal(pplan.esc.rows, rplan.esc.rows)
+    assert cache.stats() == {"hits": 0, "misses": 0, "size": 0}
+    assert hash_ops == [] and launches().get("hash", 0) == 0
 
 
 def test_port_imports_neither_jax_nor_reference():
