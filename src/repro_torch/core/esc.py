@@ -59,9 +59,10 @@ def pack_keys(rows: torch.Tensor, cols: torch.Tensor,
 
 
 def segment_sum(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Sums of consecutive segments of ``values``, each summed in order by
-    one thread, so the result is deterministic on a GPU too (unlike an
-    atomic ``index_add_``)."""
+    """Sums of consecutive segments of ``values`` by
+    ``torch.segment_reduce``: on the host each segment is summed in order,
+    on the card as a tree (cub's segmented reduce); deterministic on both,
+    unlike an atomic ``index_add_``."""
     if lengths.numel() == 0:
         return values.new_zeros(0)
     return torch.segment_reduce(values, "sum", lengths=lengths, unsafe=True)

@@ -569,9 +569,13 @@ def _execute(plan: ExecutionPlan, shards: List[_ShardWork], a: CSR, b: CSR,
         wave2_overlapped=plan.wave2_overlapped,
         estimation_accuracy=accuracy, decision=plan.decision,
         span_seconds=state.span_seconds, device_seconds=device_s,
-        pred_entries=plan.pred_entries, alloc_entries=plan.alloc_entries)
+        pred_entries=plan.pred_entries, alloc_entries=plan.alloc_entries,
+        exact_wide_rows=plan.exact_wide_rows,
+        esc_routed_rows=plan.esc_routed_rows)
     obs_metrics.count("plan.pred_entries", report.pred_entries)
     obs_metrics.count("plan.alloc_entries", report.alloc_entries)
+    obs_metrics.count("plan.exact_wide_rows", report.exact_wide_rows)
+    obs_metrics.count("plan.esc_routed_rows", report.esc_routed_rows)
     return c, report
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels import spgemm_dense as kdense
 from ..kernels.pattern_fingerprint import path as fingerprint_path
 from ..kernels.pattern_fingerprint import pattern_fingerprint
 from ..obs import accuracy as obs_accuracy
@@ -30,8 +31,9 @@ from . import esc as esc_mod
 from . import tuning as tuning_mod
 from .analysis import (AnalysisResult, OceanConfig, analyze,
                        sharded_merge_estimate, sketches_for)
-from .binning import WINDOW_LADDER, BinPlan, plan_bins
-from .formats import CSR, csr_from_arrays, flat_gather_index, host
+from .binning import CAP_LADDER, WINDOW_LADDER, BinPlan, DenseBin, plan_bins
+from .formats import (CSR, csr_from_arrays, flat_gather_index, host,
+                      pow2_at_least)
 
 
 @dataclasses.dataclass
@@ -72,6 +74,12 @@ class OceanReport:
     # reserve (``ExecutionPlan.pred_entries``, ``.alloc_entries``)
     pred_entries: float = 0.0
     alloc_entries: int = 0
+    # rows of long-row launches sized past ``CAP_LADDER[-1]`` from their
+    # exact sizes, and rows put in the ESC bin at plan time because no
+    # long-row launch holds them (``ExecutionPlan.exact_wide_rows``,
+    # ``.esc_routed_rows``)
+    exact_wide_rows: int = 0
+    esc_routed_rows: int = 0
 
     @property
     def total_seconds(self) -> float:
@@ -206,7 +214,8 @@ class DenseBinExec:
     row_lo: torch.Tensor       # (R, 1) int32
     cost: np.ndarray           # (R,) int64 per-row estimated products
     bin_id: int                # position in the plan's bin ladder (shard
-                               # slices keep it)
+                               # slices keep it, and so do the launches
+                               # of a long-row bin split by exact size)
     n_valid: int               # real rows (slices are not padded: == R)
 
 
@@ -294,10 +303,62 @@ class ExecutionPlan:
                 + sum(len(h.rows) * (h.table + h.spill) for h in self.hash)
                 + (self.esc.out_cap if self.esc is not None else 0))
 
+    @property
+    def exact_wide_rows(self) -> int:
+        """Rows of long-row launches sized past ``CAP_LADDER[-1]`` from
+        their exact sizes (:func:`exact_longrow_launches`)."""
+        return sum(len(d.rows) for d in self.dense
+                   if d.is_longrow and d.cap > CAP_LADDER[-1])
+
+    @property
+    def esc_routed_rows(self) -> int:
+        """Rows of the ESC bin past the ``BinPlan``'s: rows no long-row
+        launch holds, put there at plan time."""
+        return (0 if self.esc is None
+                else len(self.esc.rows) - self.bins_describe["esc"])
+
 
 # ---------------------------------------------------------------------------
 # Planner
 # ---------------------------------------------------------------------------
+
+def exact_longrow_launches(bn: DenseBin, size: np.ndarray,
+                           a_row_nnz: np.ndarray, max_cap: int
+                           ) -> Tuple[List[DenseBin], np.ndarray]:
+    """The launches of long-row bin ``bn`` when ``size`` holds each row's
+    exact output nnz (the symbolic and known workflows): ``(launches,
+    esc_rows)``.
+
+    ``plan_bins`` clamps every cap at ``CAP_LADDER[-1]``, so a row past it
+    would fill its slab, overflow and run again through the exact ESC
+    fallback. Here such a row gets the power of two at or above its size,
+    at most ``max_cap`` and the bin's width, one launch per cap, each with
+    the ELL width of its own rows; a row past ``max_cap`` goes to the ESC
+    bin (``esc_rows``) and is never launched in a slab. The other rows
+    keep the bin's cap in a launch of their own, so a bin with no row past
+    the ladder comes back as it is."""
+    rows = bn.rows
+    size = np.asarray(size, np.float64)[rows]
+    wide = size > CAP_LADDER[-1]
+    if not wide.any():
+        return [bn], np.zeros(0, np.int64)
+    exp2 = 2 ** np.ceil(np.log2(np.maximum(size, 1.0)))
+    cap_of = np.minimum(np.minimum(exp2, max_cap),
+                        bn.window * bn.col_tiles).astype(np.int64)
+    to_esc = wide & (size > max_cap)
+    groups = [(~wide, bn.cap)] + [
+        (wide & ~to_esc & (cap_of == c), int(c))
+        for c in np.unique(cap_of[wide & ~to_esc])]
+    launches = []
+    for sel, cap in groups:
+        if sel.any():
+            r = rows[sel]
+            launches.append(DenseBin(
+                window=bn.window, col_tiles=bn.col_tiles, cap=cap, rows=r,
+                ell_width=pow2_at_least(int(a_row_nnz[r].max()), floor=8),
+                cost=bn.cost[sel]))
+    return launches, rows[to_esc]
+
 
 def pattern_arrays(a: CSR, b: CSR) -> List[torch.Tensor]:
     """The arrays the plan key fingerprints: A's indptr and indices[:nnz],
@@ -466,21 +527,31 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
                 [plan.esc_caps, products[longrow_rows]]),
             empty_rows=plan.empty_rows, hash_bins=plan.hash_bins)
 
+    # on an exact workflow a long-row bin launches at its rows' own sizes;
+    # each launch keeps its bin's id
     dense_execs: List[DenseBinExec] = []
-    for bin_id, bn in enumerate(plan.dense_bins):
-        out_rows, pos, valid, a_rows, a_starts, a_lens = \
-            kops.prep_bin_structure(a, b, bn.rows, bn.ell_width)
-        lo_arr = (out_lo[bn.rows] if not bn.is_longrow
-                  else np.zeros(len(bn.rows)))
-        row_lo = torch.from_numpy(
-            lo_arr.reshape(-1, 1).astype(np.int32)).to(dev)
-        dense_execs.append(DenseBinExec(
-            window=bn.window, col_tiles=bn.col_tiles, cap=bn.cap,
-            rows=bn.rows, out_rows=out_rows, ell_width=bn.ell_width,
-            is_longrow=bn.is_longrow, pos=pos, valid=valid, a_rows=a_rows,
-            a_starts=a_starts, a_lens=a_lens, row_lo=row_lo,
-            cost=np.asarray(bn.cost, np.int64), bin_id=bin_id,
-            n_valid=len(bn.rows)))
+    routed = [np.zeros(0, np.int64)]
+    for bin_id, bin_ in enumerate(plan.dense_bins):
+        launches = [bin_]
+        if wf in ("symbolic", "known") and bin_.is_longrow:
+            launches, to_esc = exact_longrow_launches(
+                bin_, pred, a_row_nnz, kdense.longrow_max_cap(
+                    dev, bin_.window * bin_.col_tiles))
+            routed.append(to_esc)
+        for bn in launches:
+            out_rows, pos, valid, a_rows, a_starts, a_lens = \
+                kops.prep_bin_structure(a, b, bn.rows, bn.ell_width)
+            lo_arr = (out_lo[bn.rows] if not bn.is_longrow
+                      else np.zeros(len(bn.rows)))
+            row_lo = torch.from_numpy(
+                lo_arr.reshape(-1, 1).astype(np.int32)).to(dev)
+            dense_execs.append(DenseBinExec(
+                window=bn.window, col_tiles=bn.col_tiles, cap=bn.cap,
+                rows=bn.rows, out_rows=out_rows, ell_width=bn.ell_width,
+                is_longrow=bn.is_longrow, pos=pos, valid=valid,
+                a_rows=a_rows, a_starts=a_starts, a_lens=a_lens,
+                row_lo=row_lo, cost=np.asarray(bn.cost, np.int64),
+                bin_id=bin_id, n_valid=len(bn.rows)))
 
     hash_execs: List[HashBinExec] = []
     for hash_id, hb in enumerate(plan.hash_bins):
@@ -491,12 +562,13 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             ell_width=hb.ell_width, pos=pos, valid=valid, a_rows=a_rows,
             a_starts=a_starts, a_lens=a_lens,
             cost=np.asarray(hb.cost, np.int64),
-            bin_id=len(dense_execs) + hash_id, n_valid=len(hb.rows),
+            bin_id=len(plan.dense_bins) + hash_id, n_valid=len(hb.rows),
             f_chunk=hash_cfg.f_chunk, tile=hash_cfg.tile_rows))
 
     esc_exec = None
-    if len(plan.esc_rows):
-        rows = plan.esc_rows
+    routed = np.concatenate(routed)
+    rows = np.concatenate([plan.esc_rows, routed])
+    if len(rows):
         if (prework.get("esc_rows") is not None
                 and np.array_equal(prework["esc_rows"], rows)):
             sub_ptr, src = prework["sub_ptr"], prework["src"]
@@ -510,7 +582,8 @@ def build_plan(a: CSR, b: CSR, cfg: OceanConfig = OceanConfig(), *,
             out_rows=torch.as_tensor(rows, dtype=torch.int64).to(dev),
             sub_indptr=torch.from_numpy(sub_ptr.astype(np.int32)).to(dev),
             sub_indices=a.indices[src_t], src=src_t, out_cap=p_cap,
-            cost=np.asarray(plan.esc_costs, np.int64), n_valid=len(rows))
+            cost=np.concatenate([np.asarray(plan.esc_costs, np.int64),
+                                 products[routed]]), n_valid=len(rows))
     stage["binning"] = time.perf_counter() - t0
 
     decision = obs_accuracy.record_decision(
@@ -546,7 +619,9 @@ def trace_binning(plan: ExecutionPlan, t0: float,
         if seconds is None:
             seconds = time.perf_counter() - t0
         trace.add_span("plan.binning", t0, seconds, pred_entries=pred,
-                       alloc_entries=alloc, **attrs)
+                       alloc_entries=alloc,
+                       exact_wide_rows=plan.exact_wide_rows,
+                       esc_routed_rows=plan.esc_routed_rows, **attrs)
 
 
 def execute_plan(plan: ExecutionPlan, a: CSR, b: CSR, *,

@@ -38,6 +38,7 @@ LL = ctypes.c_longlong
 # so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "ocean_dense_slab": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "ocean_longrow_max_cap": (I, P),
     "ocean_hash_slab": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     "ocean_hash_blocks_per_sm": (I, I, I, P),
     "ocean_hll_merge": (P, P, P, P, P, I, I, I, F, P),

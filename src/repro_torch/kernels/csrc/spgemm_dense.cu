@@ -59,6 +59,9 @@
 //      enumeration order, and no two lanes write one address.
 // Ranges wider than one shared-memory bitmap are taken in segments, the
 // products re-streamed per segment; segments wholly past cap skip steps 3-4.
+// The cap may be any width whose slots fit beside the smallest segment; an
+// exact plan sizes each long-row launch from its rows' exact sizes, up to
+// the cap at which one segment holds the range (ocean_longrow_max_cap).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -562,6 +565,32 @@ cudaError_t longrow_fit_words(int cap, int64_t* words) {
 }
 
 }  // namespace
+
+// The largest cap (a multiple of 4, at most 65535; 0 when none) at which one
+// segment of the long-row kernel holds `width` columns on the current device:
+// longrow_smem of that segment and the cap, and the static shared memory,
+// within the opt-in limit. Up to 32,768 columns (one smallest segment) it is
+// the largest cap the kernel launches at all.
+extern "C" int ocean_longrow_max_cap(int width, int* cap) {
+  *cap = 0;
+  if (width <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, longrow_slab_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t words = ((int64_t)(width + 63) / 64 + kWordAlign - 1) /
+                        kWordAlign * kWordAlign;
+  // the cap's slots take ((cap + 3) & ~3) * 4 bytes of what is left
+  const int64_t room = (int64_t)optin - (int64_t)attr.sharedSizeBytes -
+                       (int64_t)longrow_smem((int)words, 0);
+  *cap = (int)std::min<int64_t>(65535, std::max<int64_t>(0, room / 4 & ~3));
+  return 0;
+}
 
 extern "C" int ocean_dense_slab(const void* a_rows, const void* a_vals,
                                 const void* a_starts, const void* a_lens,

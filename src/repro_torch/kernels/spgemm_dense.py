@@ -94,10 +94,10 @@ def _chunks_of(per_row):
 def dense_bin_plain(a_rows, a_vals, a_starts, a_lens, row_lo, b_cols, b_vals,
                     *, window: int, col_tiles: int = 1):
     """Plain PyTorch version: every product summed into its row's window
-    slot in enumeration order. The products are stably sorted by slot and
-    each slot summed in order by one thread (``esc.segment_sum``), so the
-    sums keep enumeration order on a GPU too, where an ``index_add_``
-    would add them with atomics in no fixed order."""
+    slot. The products are stably sorted by slot and each slot summed by
+    ``esc.segment_sum``: in enumeration order on the host, as the kernels
+    sum, and as a fixed tree on a GPU, where an ``index_add_`` would add
+    them with atomics in no fixed order."""
     r = a_rows.shape[0]
     w = window * col_tiles
     dev = b_vals.device
@@ -170,6 +170,36 @@ def _check_window(r: int, window: int, col_tiles: int) -> None:
 def _check_cap(cap: int) -> None:
     if not 0 < cap <= MAX_CAP:
         raise ValueError(f"cap {cap} must be in [1, {MAX_CAP}]")
+
+
+@functools.lru_cache(maxsize=None)
+def longrow_max_cap_on(device_index: int, width: int) -> int:
+    """The largest cap at which one bitmap segment of the long-row kernel
+    holds ``width`` columns on CUDA device ``device_index``, from the
+    kernel's shared memory (0 when none). Up to 32,768 columns it is the
+    largest cap the kernel launches at all; past it the launch is refused."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        status = _build.library().ocean_longrow_max_cap(
+            width, ctypes.addressof(out))
+    if status != 0:
+        raise RuntimeError(f"long-row shared-memory query failed: cudaError "
+                           f"{status}")
+    return out.value
+
+
+def longrow_max_cap(device, width: int) -> int:
+    """The largest slab width the long-row rung takes over ``width``
+    columns on ``device`` with the whole range in one bitmap segment (the
+    products streamed once a step): ``MAX_CAP`` for the plain version
+    (every device but CUDA), on the card also the kernel's shared memory
+    (:func:`longrow_max_cap_on`)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return MAX_CAP
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return min(MAX_CAP, longrow_max_cap_on(index, int(width)))
 
 
 def extract_window_rows(acc, cnt, row_lo, *, cap: int):

@@ -8,23 +8,31 @@ Run from the repository root:
         --label <name>
 
 It builds ``chip_smoke.py``'s banded and power-law matrices (``2**log2_rows``
-rows), plans ``A @ A`` for each with ``planner.build_plan``, and times with
-CUDA events (median of ``--runs`` after one warm-up call):
+rows) and a Graph500-style R-MAT graph (``--rmat-scale``, edge factor 16,
+random weights; 0 leaves it out), plans ``A @ A`` for each with
+``planner.build_plan``, and times with CUDA events (median of ``--runs``
+after one warm-up call):
 
 - ``ops.dense_bin_op``, the whole function the executor calls for a dense
   bin (the kernel and any compaction after it), on banded's largest windowed
-  bin and on power-law's largest long-row bin; with the dense launches one
-  call makes and the device memory it allocates beyond its inputs;
+  bin, on power-law's largest long-row bin and on every long-row launch of
+  R-MAT's plan (the symbolic workflow sizes them from the rows' exact sizes,
+  one launch a cap); with the dense launches one call makes and the device
+  memory it allocates beyond its inputs; on R-MAT also the launch against
+  ``spgemm_dense.dense_slab_plain`` on the card: columns and counts equal,
+  and the values' largest difference (the plain version's ``torch.
+  segment_reduce`` sums a segment in another order there);
 - one ``torch.sparse`` CSR @ CSR call (cuSPARSE) computing the same rows of
   C, the bin's rows of A times A: the library's time for the same function,
   whose nnz is checked against the bin op's.
 
-It also prints each bin's shape: rows, ELL width, cap, live slots and
-products per row. It calls only functions that every version of the port
-has had, so the same file times another checkout through ``PYTHONPATH``,
-as long as its wrappers count launches into the metrics registry
-(``obs.metrics.launched``); an older checkout is timed by its own copy of
-this file. The last line is one JSON object.
+It also prints each bin's shape: rows, ELL width, cap, live slots,
+products per row and the bin's bound (``bound_ms``: bytes at 3.35 TB/s or
+two operations a product at 67 TFLOP/s). It calls only functions that
+every version of the port has had, so the same file times another
+checkout through ``PYTHONPATH``, as long as its wrappers count launches
+into the metrics registry (``obs.metrics.launched``); an older checkout
+is timed by its own copy of this file. The last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -57,6 +65,27 @@ def dense_launches() -> int:
     return metrics.launched("dense_window", "dense_longrow")
 
 
+# the H100's HBM3 bandwidth and f32 rate (``perfbench/peaks.json``)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+
+def bound_ms(be, products: int) -> float:
+    """The least time the card could take for the bin: the bytes it must
+    move (a_rows whole, the other ELL inputs at live slots, each row's
+    window base, each B row the bin references once, the slabs and counts
+    written) at the HBM peak, or two operations a product at the f32 peak,
+    whichever is longer."""
+    live = be.a_rows >= 0
+    r, e = be.a_rows.shape
+    b_len = torch.zeros(int(be.a_rows.max()) + 1 if live.any() else 1,
+                        dtype=torch.int64, device=be.a_rows.device)
+    b_len[be.a_rows[live].long()] = be.a_lens[live].long()
+    by = (r * e * 4 + int(live.sum()) * 12 + r * 4 + int(b_len.sum()) * 8
+          + r * (be.cap * 8 + 4))
+    return 1e3 * max(by / PEAK_BYTES_PER_S, 2 * products / PEAK_F32_PER_S)
+
+
 def bin_shape(be) -> dict:
     live = be.a_rows >= 0
     per_row = torch.where(live, be.a_lens, 0).sum(1, dtype=torch.int64)
@@ -68,12 +97,13 @@ def bin_shape(be) -> dict:
             "slots_per_row_p50_p90_p99_max": [
                 float(x) for x in torch.quantile(slots.double(), q.double())],
             "products": int(per_row.sum()),
+            "bound_ms": bound_ms(be, int(per_row.sum())),
             "products_per_row_p50_p90_p99_max": [
                 float(x) for x in torch.quantile(per_row.double(),
                                                  q.double())]}
 
 
-def time_bin(a, be, runs: int) -> dict:
+def time_bin(a, be, runs: int, check: bool = False) -> dict:
     from repro_torch.core import planner
     from repro_torch.kernels import ops
     b_cols, b_vals = ops.pad_b_flat(a)
@@ -101,6 +131,13 @@ def time_bin(a, be, runs: int) -> dict:
     lib_nnz = int((ta @ tb)._nnz())
     lib_ms = time_cuda(lambda: ta @ tb, runs)
     out = bin_shape(be)
+    if check:
+        from repro_torch.kernels import spgemm_dense
+        want = spgemm_dense.dense_slab_plain(*args, **kw)
+        out["plain_cols_nnz_equal"] = (torch.equal(cols, want[0])
+                                       and torch.equal(nnz, want[2]))
+        out["plain_max_abs_err"] = float((vals - want[1]).abs().max())
+        del want
     out.update({"bin_op_ms": ms, "launches_per_call": launches,
                 "alloc_beyond_inputs_gib": scratch / 2**30,
                 "nnz": int(nnz.long().sum()),
@@ -112,6 +149,7 @@ def time_bin(a, be, runs: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log2-rows", type=int, default=20)
+    ap.add_argument("--rmat-scale", type=int, default=15)
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--label", default="this checkout")
     args = ap.parse_args()
@@ -141,6 +179,21 @@ def main() -> int:
         key = f"{name}_{'longrow' if long else 'window'}"
         result["bins"][key] = time_bin(a, be, args.runs)
         print(f"{key}: {json.dumps(result['bins'][key])}", flush=True)
+    if args.rmat_scale:
+        from repro_torch import graph
+        a = graph.rmat_csr(1, args.rmat_scale, 16, weights="random",
+                           device="cuda")
+        plan = planner.build_plan(a, a)
+        result["rmat"] = {"scale": args.rmat_scale, "nnz": a.nnz,
+                          "workflow": plan.workflow,
+                          "exact_wide_rows": getattr(plan, "exact_wide_rows",
+                                                     None)}
+        for be in plan.dense:
+            if be.is_longrow:
+                key = f"rmat_longrow_cap{be.cap}"
+                result["bins"][key] = time_bin(a, be, args.runs, check=True)
+                print(f"{key}: {json.dumps(result['bins'][key])}",
+                      flush=True)
     print(json.dumps(result))
     return 0
 

@@ -89,10 +89,14 @@ def test_sizing_counters_cold_and_replayed(ne):
         assert (rep.pred_entries, rep.alloc_entries) == (pred, alloc)
     assert reg.series("plan.pred_entries") == {(): 2 * pred}
     assert reg.series("plan.alloc_entries") == {(): 2 * alloc}
+    assert reg.series("plan.exact_wide_rows") == {(): 0}
+    assert reg.series("plan.esc_routed_rows") == {(): 0}
     spans = [e for e in tr.events() if e["name"] == "plan.binning"]
-    assert [e["attrs"] for e in spans] == [
-        {"pred_entries": pred, "alloc_entries": alloc},
-        {"pred_entries": pred, "alloc_entries": alloc, "replay": True}]
+    # the estimation workflow sizes no launch from exact sizes
+    sizing = {"pred_entries": pred, "alloc_entries": alloc,
+              "exact_wide_rows": 0, "esc_routed_rows": 0}
+    assert [e["attrs"] for e in spans] == [sizing,
+                                           {**sizing, "replay": True}]
     # the replay's span covers the counters' reading: never empty, so an
     # interval sweep over the spans opens and closes it
     lookup = next(e for e in tr.events() if e["name"] == "plan.lookup")

@@ -29,8 +29,9 @@ from repro.core import planner as rplanner  # noqa: E402
 from repro.core import tuning as rtuning  # noqa: E402
 from repro.core import workflow as rworkflow  # noqa: E402
 from repro_torch.core import analysis, esc, formats, planner, tuning  # noqa: E402,E501
-from repro_torch.core import workflow  # noqa: E402
+from repro_torch.core import partition, workflow  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import spgemm_dense as kdense  # noqa: E402
 from _torch_launches import launches  # noqa: E402,F401 (the fixture)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -262,6 +263,194 @@ def test_default_plan_needs_no_pin(suites, name, monkeypatch, launches):
         np.testing.assert_array_equal(pplan.esc.rows, rplan.esc.rows)
     assert cache.stats() == {"hits": 0, "misses": 0, "size": 0}
     assert hash_ops == [] and launches().get("hash", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# Long rows past the cap ladder, sized from exact row sizes
+# ---------------------------------------------------------------------------
+
+WIDE_COLS = 12288  # six 2048-column tiles: the long-row rung
+
+
+def _wide_rows_pair(seed, m=48, k=600, b_row=250, a_lens=(40, 80, 25, 12)):
+    """A (m x k) and B (k x WIDE_COLS) as numpy CSR ``(indptr, indices,
+    values, shape)``: every B row has ``b_row`` random columns, so A's rows
+    of ``a_lens`` entries have about 6,900, 9,900, 5,000 and 2,700 output
+    columns spread over all of B's (the long-row rung; the first three past
+    ``CAP_LADDER[-1]``) and the other rows 1-3 entries (hash rungs)."""
+    rng = np.random.default_rng(seed)
+    b_ind = np.concatenate([np.sort(rng.choice(WIDE_COLS, b_row,
+                                               replace=False))
+                            for _ in range(k)])
+    b_ptr = np.arange(k + 1) * b_row
+    lens = list(a_lens) + list(rng.integers(1, 4, m - len(a_lens)))
+    a_ind = np.concatenate([np.sort(rng.choice(k, n, replace=False))
+                            for n in lens])
+    a_ptr = np.concatenate([[0], np.cumsum(lens)])
+    vals = [rng.uniform(-1.0, 1.0, len(x)).astype(np.float32)
+            for x in (a_ind, b_ind)]
+    return ((a_ptr, a_ind, vals[0], (m, k)),
+            (b_ptr, b_ind, vals[1], (k, WIDE_COLS)))
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """The pair on both sides, and C's exact row sizes (scipy)."""
+    np_a, np_b = _wide_rows_pair(0)
+    port = [formats.from_numpy_csr(*x, device="cpu") for x in (np_a, np_b)]
+    ref = [rformats.csr_from_arrays(*x) for x in (np_a, np_b)]
+    sp = pytest.importorskip("scipy.sparse")
+    want = (sp.csr_matrix(np_a[2:0:-1] + (np_a[0],), shape=np_a[3])
+            @ sp.csr_matrix(np_b[2:0:-1] + (np_b[0],), shape=np_b[3]))
+    want.sort_indices()
+    return port, ref, want
+
+
+def assert_exact_product(c, a, b, want):
+    """C against the port's plain ESC and scipy: the pattern exactly, the
+    values to rtol 1e-5 / atol 1e-6."""
+    for other in (formats.to_numpy(workflow.spgemm_reference(a, b)),
+                  (want.indptr, want.indices, want.data)):
+        got = formats.to_numpy(c)
+        np.testing.assert_array_equal(got[0], other[0])
+        np.testing.assert_array_equal(got[1], other[1])
+        np.testing.assert_allclose(got[2], other[2], rtol=1e-5, atol=1e-6)
+
+
+def longrow_execs(plan):
+    return [be for be in plan.dense if be.is_longrow]
+
+
+@pytest.mark.parametrize("wf", ["symbolic", "known"])
+def test_exact_sizes_give_long_rows_their_own_caps(wide, wf):
+    """On an exact workflow the long-row bin launches once per cap rung,
+    each cap at least its rows' exact sizes, so no row overflows; the
+    ``BinPlan`` stays the reference's and C is exact."""
+    (a, b), (ra, rb), want = wide
+    exact = np.diff(want.indptr)
+    kw = ({"force_workflow": "symbolic"} if wf == "symbolic"
+          else {"known_sizes": exact})
+    plan = planner.build_plan(a, b, **kw)
+    rplan = rplanner.build_plan(ra, rb, **kw)
+    assert plan.workflow == rplan.workflow == wf
+    assert dict(plan.bins_describe) == dict(rplan.bins_describe)
+    execs = longrow_execs(plan)
+    (rbin,) = [be for be in rplan.dense if be.col_tiles > 1]
+    assert rbin.cap == 4096
+    np.testing.assert_array_equal(
+        np.sort(np.concatenate([be.rows for be in execs])), rbin.rows)
+    caps = [be.cap for be in execs]
+    assert caps == sorted(set(caps)) == [4096, 8192, WIDE_COLS]
+    for be in execs:
+        assert (be.bin_id, be.window, be.col_tiles) == (
+            rbin.bin_id, rbin.window, rbin.col_tiles)
+        assert (exact[be.rows] <= be.cap).all()
+        assert be.ell_width == formats.pow2_at_least(
+            int(np.diff(formats.to_numpy(a)[0])[be.rows].max()), floor=8)
+    assert [hb.bin_id for hb in plan.hash] == [hb.bin_id for hb in rplan.hash]
+    n_wide = int((exact[rbin.rows] > 4096).sum())
+    assert (plan.exact_wide_rows, plan.esc_routed_rows) == (n_wide, 0) == (
+        3, 0)
+    assert plan.esc is None
+    c, rep = planner.execute_plan(plan, a, b)
+    assert rep.overflow_rows == 0
+    assert (rep.exact_wide_rows, rep.esc_routed_rows) == (3, 0)
+    assert rep.estimation_accuracy.overflow_causes == {}
+    assert_exact_product(c, a, b, want)
+    # the sharded path slices each launch and keeps its bin id
+    c2, _ = planner.execute_sharded_plan(
+        partition.partition_plan(plan, ["cpu"] * 3), a, b)
+    for x, y in zip(formats.to_numpy(c2), formats.to_numpy(c)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["estimation", "stale_known"])
+def test_inexact_sizes_keep_the_ladder_and_the_fallback(wide, case):
+    """Estimated sizes keep the reference's clamped long-row bin, and its
+    rows past 4,096 run again through the exact fallback; fed-forward
+    sizes that undershoot overflow into the same fallback."""
+    (a, b), (ra, rb), want = wide
+    exact = np.diff(want.indptr)
+    if case == "estimation":
+        kw = {"force_workflow": "estimation"}
+        plan = planner.build_plan(a, b, **kw)
+        rplan = rplanner.build_plan(ra, rb, **kw)
+        assert len(plan.dense) == len(rplan.dense)
+        for got, ref in zip(plan.dense, rplan.dense):
+            assert (got.window, got.col_tiles, got.cap, got.bin_id) == (
+                ref.window, ref.col_tiles, ref.cap, ref.bin_id)
+            np.testing.assert_array_equal(got.rows, ref.rows)
+        (rows,) = [be.rows for be in longrow_execs(plan)]
+        over = rows[exact[rows] > 4096]
+    else:
+        stale = exact.copy()
+        (rows,) = [be.rows for be in longrow_execs(
+            planner.build_plan(a, b, force_workflow="estimation"))]
+        over = rows[exact[rows] > 4096]
+        stale[over] //= 2
+        plan = planner.build_plan(a, b, known_sizes=stale)
+        # each row's launch is sized from its stale size, short of its own
+        cap_of = {int(r): be.cap for be in longrow_execs(plan)
+                  for r in be.rows}
+        assert all(stale[r] <= cap_of[r] < exact[r] for r in over)
+    assert len(over) == 3
+    c, rep = planner.execute_plan(plan, a, b)
+    assert rep.overflow_rows == len(over)
+    assert plan.esc_routed_rows == 0
+    cause = "longrow_slab" + ("+stale_feed" if case == "stale_known" else "")
+    assert rep.estimation_accuracy.overflow_causes == {cause: len(over)}
+    assert_exact_product(c, a, b, want)
+
+
+def test_rows_past_the_largest_cap_go_to_the_esc_bin(wide, monkeypatch):
+    """With the long-row rung's largest cap lowered, a row whose exact size
+    passes it is put in the plan's ESC bin, launched once there and in no
+    slab, and C stays exact."""
+    (a, b), _, want = wide
+    exact = np.diff(want.indptr)
+    monkeypatch.setattr(kdense, "MAX_CAP", 8192)
+    plan = planner.build_plan(a, b, force_workflow="symbolic")
+    routed = np.nonzero(exact > 8192)[0]
+    assert len(routed) == 1
+    np.testing.assert_array_equal(plan.esc.rows, routed)
+    np.testing.assert_array_equal(plan.esc.cost,
+                                  np.asarray(plan.products)[routed])
+    slabbed = np.concatenate([be.rows for be in plan.dense + plan.hash])
+    assert not np.isin(routed, slabbed).any()
+    assert [be.cap for be in longrow_execs(plan)] == [4096, 8192]
+    assert (plan.exact_wide_rows, plan.esc_routed_rows) == (2, 1)
+    assert plan.bins_describe["esc"] == 0  # the BinPlan's, unchanged
+    c, rep = planner.execute_plan(plan, a, b)
+    assert rep.overflow_rows == 0
+    assert (rep.exact_wide_rows, rep.esc_routed_rows) == (2, 1)
+    assert_exact_product(c, a, b, want)
+
+
+def test_exact_sizing_counters_cold_and_replayed(wide, monkeypatch):
+    """``plan.exact_wide_rows`` and ``plan.esc_routed_rows`` read what the
+    plan did, on the report, in the registry and as attrs of
+    ``plan.binning``, cold and on a replay."""
+    from repro_torch.obs import metrics, trace
+    (a, b), _, _ = wide
+    monkeypatch.setattr(kdense, "MAX_CAP", 8192)
+    cache = planner.PlanCache()
+    reg = metrics.MetricsRegistry()
+    prev = metrics.install_registry(reg)
+    tr = trace.Tracer()
+    try:
+        with trace.tracing(tr):
+            reps = [workflow.ocean_spgemm(a, b, cache=cache)[1]
+                    for _ in range(2)]
+    finally:
+        metrics.install_registry(prev)
+    assert [r.plan_cache_hit for r in reps] == [False, True]
+    assert [(r.workflow, r.exact_wide_rows, r.esc_routed_rows)
+            for r in reps] == [("symbolic", 2, 1)] * 2
+    assert reg.series("plan.exact_wide_rows") == {(): 4}
+    assert reg.series("plan.esc_routed_rows") == {(): 2}
+    spans = [e["attrs"] for e in tr.events() if e["name"] == "plan.binning"]
+    assert [(s["exact_wide_rows"], s["esc_routed_rows"], s.get("replay"))
+            for s in spans] == [(2, 1, None), (2, 1, True)]
 
 
 def test_port_imports_neither_jax_nor_reference():
